@@ -7,22 +7,40 @@ Phases, one line each on stdout (a failing phase raises and the script
 exits non-zero without the final result line):
 
 1. device   the card's name and power limit (nvidia-smi); no CUDA -> fail
-2. build    the five CUDA kernels from longreadselfcorrect_tpu_torch/csrc
+2. build    the nine CUDA kernels from longreadselfcorrect_tpu_torch/csrc
             with nvcc, one process per source, all at once
 3. data     the bench corpus recipe: a 4 Mb random genome (seed 2026), 30x
             of 2 kb reads (60,000 reads, ~120M symbols per strand) indexed
-            with native/fmbuild and packed; 256 noisy 1.5 kb reads at 8%
-            error; all under .torch_cache/
-4. kernels  each kernel against its plain torch version on the card, on
-            the 64-read chunks of the noisy reads, exactly; kernel and plain
-            times (CUDA events, median of 5 after one warm-up) and the
-            least time the card needs for the same work
-5. seeds    the port's seed phase on all 256 noisy reads on the card, held
+            with native/fmbuild and packed (with the host-built 8-mer
+            interval table); 256 noisy 1.5 kb reads at 8% error, and 2048
+            further ones (seed 2027); all under .torch_cache/; then the
+            walk's 12-mer interval table, four level-ups on the card
+4. kernels  each seed-phase kernel against its plain torch version on the
+            card, on the 64-read chunks of the noisy reads, exactly; kernel
+            and plain times (CUDA events, median of 5 after one warm-up)
+            and the least time the card needs for the same work
+5. walks    each walk kernel against its plain version on the card, on the
+            gap tasks the 256 noisy reads enumerate, exactly: the level-up
+            11 -> 12, the prep of the bank, one superstep and a walk to
+            completion of a 512-lane batch, the queue engine on 1024 tasks;
+            then walk_steps and walk_queue at every further config the main
+            path routes these tasks to (the bulk's narrow-chain bank, the
+            batch buckets, the wide and dense reruns of flagged lanes), and
+            an L = 32, a dense batch and each config of the ladder in any
+            case
+6. seeds    the port's seed phase on all 256 noisy reads on the card, held
             field for field against the host search_seeds on 16 of them
-6. correct  pbcorrect end to end (BatchedSelfCorrector.process_stream) on
-            8 noisy reads, with launch counts reset just before; results
-            held against the host SelfCorrector; reads/s and the
-            seed/walks/replay split
+7. correct  pbcorrect end to end, launch counts reset just before: the
+            walk's interval tables built anew (as on a first run over a
+            pack), then BatchedSelfCorrector.process_stream over all 256
+            noisy reads; the first 8 results held against the host
+            SelfCorrector; reads/s of the stream, the tables' seconds, the
+            seed/walks/replay split, the gaps, prefetch and host-fallback
+            counters, the launches, and the configs walk_steps ran at (a
+            config phase 5 did not check is checked now)
+8. trace    one more pass over the 256 reads under torch.profiler: the
+            device's busy share of each corrector phase, device ms by kernel
+9. throughput  the stream over the 2048 further reads, tables warm
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -38,13 +56,20 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(REPO, ".torch_cache")
-CORPUS_VERSION = "v1-4mb-30x"
+CORPUS_VERSION = "v2-4mb-30x"
 GENOME_LEN = 4_000_000
 READ_LEN = 2000
 COVERAGE = 30
 N_NOISY = 256
 N_HOST_SEEDS = 16
-N_END_TO_END = 8
+N_HOST_CHECK = 8
+N_STREAM = 2048       # further noisy reads for the steady-state throughput
+BATCH_READS = 64      # reads per stream batch (pbcorrect --batch-reads)
+WALK_BATCH = 512
+QUEUE_TASKS = 1024
+QUEUE_LO_TASKS = 256  # queue check at the other bank configs
+STEP_CHECK_TASKS = 64  # lanes of a walk_steps check at a further config
+MAX_STEPS = 4096
 REPS = 5
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor f32 op/s
@@ -63,7 +88,17 @@ KERNEL_INFO = {
                       "longreadselfcorrect_tpu/ops/seedscan.py:246"),
     "remove_hitchhiking": ("longreadselfcorrect_tpu_torch/csrc/seedscan.cu",
                            "longreadselfcorrect_tpu/ops/seedscan.py:303"),
+    "wcache_level_up": ("longreadselfcorrect_tpu_torch/csrc/walk.cu",
+                        "longreadselfcorrect_tpu/ops/walk.py:124"),
+    "walk_prep": ("longreadselfcorrect_tpu_torch/csrc/walk.cu",
+                  "longreadselfcorrect_tpu/ops/walk.py:371"),
+    "walk_steps": ("longreadselfcorrect_tpu_torch/csrc/walk.cu",
+                   "longreadselfcorrect_tpu/ops/walk.py:997"),
+    "walk_queue": ("longreadselfcorrect_tpu_torch/csrc/walk.cu",
+                   "longreadselfcorrect_tpu/ops/walk.py:1802"),
 }
+SEED_KERNELS = ("kmer_table_full", "attributes", "scan_automaton", "estimate_best",
+                "remove_hitchhiking")
 
 
 class PhaseError(RuntimeError):
@@ -141,8 +176,9 @@ def ensure_corpus():
     stamp = os.path.join(CACHE, CORPUS_VERSION + ".ok")
     corpus = os.path.join(CACHE, "corpus.fa")
     noisy = os.path.join(CACHE, "noisy.fa")
+    stream = os.path.join(CACHE, "stream.fa")
     if os.path.exists(stamp):
-        return corpus, noisy
+        return corpus, noisy, stream
     rng = np.random.default_rng(2026)
     genome = "".join(rng.choice(list("ACGT"), size=GENOME_LEN))
     n_reads = GENOME_LEN * COVERAGE // READ_LEN
@@ -156,9 +192,13 @@ def ensure_corpus():
     with open(noisy, "w") as f:
         for i, p in enumerate(rng.integers(0, GENOME_LEN - 1600, size=N_NOISY)):
             f.write(f">r{i}\n{noisify(rng, genome[p : p + 1500], 0.08)}\n")
+    rng = np.random.default_rng(2027)
+    with open(stream, "w") as f:
+        for i, p in enumerate(rng.integers(0, GENOME_LEN - 1600, size=N_STREAM)):
+            f.write(f">s{i}\n{noisify(rng, genome[p : p + 1500], 0.08)}\n")
     with open(stamp, "w") as f:
         f.write("ok")
-    return corpus, noisy
+    return corpus, noisy, stream
 
 
 def phase_data():
@@ -167,7 +207,7 @@ def phase_data():
     from longreadselfcorrect_tpu_torch.io import fasta
 
     t0 = time.perf_counter()
-    corpus, noisy = ensure_corpus()
+    corpus, noisy, stream = ensure_corpus()
     t_corpus = time.perf_counter() - t0
     prefix = os.path.join(CACHE, "corpus")
     t0 = time.perf_counter()
@@ -182,13 +222,33 @@ def phase_data():
     t_pack = time.perf_counter() - t0
     items = [(rec.id, rec.seq) for rec in fasta.read_seqs(noisy)]
     check(len(items) == N_NOISY, f"data: {len(items)} noisy reads")
+    extra = [(rec.id, rec.seq) for rec in fasta.read_seqs(stream)]
+    check(len(extra) == N_STREAM, f"data: {len(extra)} further noisy reads")
     dev_mb = sum(t.numel() * t.element_size()
                  for fm in (dix.bwt, dix.rbwt) for t in (fm.blocks, fm.ckpt, fm.C)) / 1e6
     say(f"data: genome {GENOME_LEN} bp, {GENOME_LEN * COVERAGE // READ_LEN} reads, "
         f"{hix.bwt.n} symbols per strand, device index {dev_mb:.1f} MB, "
-        f"{len(items)} noisy reads (max {max(len(s) for _, s in items)} bp); "
+        f"{len(items)} noisy reads (max {max(len(s) for _, s in items)} bp) and "
+        f"{len(extra)} further ones; "
         f"corpus {t_corpus:.1f}s, fmbuild {t_index:.1f}s, pack+upload {t_pack:.1f}s")
-    return hix, dix, items
+    import torch
+
+    from longreadselfcorrect_tpu_torch.ops import walk
+
+    t0 = time.perf_counter()
+    wc8 = walk.get_wcache(dix, hix, walk.CACHE_K)
+    torch.cuda.synchronize()
+    t8 = time.perf_counter() - t0
+    ck = walk.walk_ck(hix.bwt.n)
+    t0 = time.perf_counter()
+    wx = walk.WalkIndex.build(dix, hix, ck)
+    torch.cuda.synchronize()
+    t12 = time.perf_counter() - t0
+    say(f"data: walk interval tables: ck=8 {tuple(wc8.shape)} from the pack in "
+        f"{t8:.3f}s; ck={ck} {tuple(wx.wcache.shape)} = "
+        f"{wx.wcache.numel() * 4 / 1e6:.1f} MB by {ck - walk.CACHE_K} level-ups on the "
+        f"card (+ saving wcache{ck}.npy) in {t12:.3f}s")
+    return hix, dix, items, extra
 
 
 # ---------------------------------------------------------------------------
@@ -289,7 +349,7 @@ def phase_kernels(corrector, items):
     rep_thr = float(corrector.thresh.get(2, pp.scan_kmer_len))
     hh = float(pp.hh_ratio)
     bases = torch.arange(1, 5, dtype=torch.int8, device=dev)
-    err = {k: 0 for k in KERNEL_INFO}
+    err = {k: 0 for k in SEED_KERNELS}
     rec = {}
     cuda.reset_launches()
     for ci, base in enumerate(range(0, len(items), R)):
@@ -387,7 +447,7 @@ def phase_kernels(corrector, items):
                              lane_steps=lane_steps, walk_steps=walk_steps,
                              seeds=nseeds, chunks=(len(items) + R - 1) // R)
     shape = rec.pop("_shape")
-    for k in KERNEL_INFO:
+    for k in SEED_KERNELS:
         rec[k]["max_abs_err"] = err[k]
         rec[k]["equal"] = err[k] == 0
     say("kernels: " + json.dumps([
@@ -401,7 +461,300 @@ def phase_kernels(corrector, items):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the seed phase on all noisy reads
+# phase 5: the walk kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def tensors_err(got, want) -> float:
+    """0 when every tensor (or tensor field) is bit-equal, else the largest
+    absolute difference (inf where a NaN or a shape differs)."""
+    import dataclasses
+
+    import torch
+
+    if dataclasses.is_dataclass(got):
+        return max(tensors_err(getattr(got, f.name), getattr(want, f.name))
+                   for f in dataclasses.fields(got))
+    if isinstance(got, (tuple, list)):
+        return max(tensors_err(g, w) for g, w in zip(got, want))
+    if isinstance(got, dict):
+        return max(tensors_err(got[k], want[k]) for k in got)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return float("inf")
+    if torch.equal(got, want):
+        return 0.0
+    d = (got.double() - want.double()).abs()
+    return float("inf") if bool(torch.isnan(d).any()) else float(d.max())
+
+
+def nbytes(obj) -> int:
+    import dataclasses
+
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    return sum(nbytes(getattr(obj, f.name)) for f in dataclasses.fields(obj))
+
+
+def time_once(fn):
+    """CUDA-event time of one call (the plain versions, run once)."""
+    import torch
+
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def phase_walks(corrector, items):
+    """Each walk kernel against its plain version on the main path's
+    shapes.  Returns {kernel: record}."""
+    from dataclasses import replace
+
+    import torch
+
+    from longreadselfcorrect_tpu_torch.ops import rank, walk
+
+    wx, ix, cfg = corrector.wx, corrector.dix, corrector.cfg
+    e, cov = corrector.params.error_rate, corrector.params.pb_coverage
+    rec = {}
+    t_phase = time.perf_counter()
+
+    # level-up 11 -> 12 (the last, largest level of the bench index)
+    base = walk.get_wcache(ix, corrector.ix, walk.CACHE_K)
+    st = tuple(base[:, i].contiguous() for i in range(4))
+    for _ in range(wx.ck - 1 - walk.CACHE_K):
+        st = walk.wcache_level_up(ix, *st)
+    got = walk.wcache_level_up(ix, *st)
+    with rank.RowTracker(ix) as rc:
+        want, plain_ms = time_once(lambda: walk.wcache_level_up_plain(ix, *st))
+    n = st[0].numel()
+    rec["wcache_level_up"] = dict(
+        err=tensors_err(got, want), ms=time_ms(lambda: walk.wcache_level_up(ix, *st)),
+        plain_ms=plain_ms, bytes=16 * n + 64 * n + rc.rows * 132,
+        shape=f"{n} parents -> {4 * n} children, {rc.rows} index rows")
+    del got, want
+
+    # the gap tasks the 256 noisy reads enumerate, the primary config's
+    per_read = [(rid, seq, seeds) for _, chunk, sl in corrector._device_seed_scan(items)
+                for (rid, seq), seeds in zip(chunk, sl)]
+    tasks, _ = corrector._enumerate_walks(per_read)
+    prim = [t for t in tasks if t.init_k >= cfg.CK
+            and corrector._task_fits(t.src, t.path, t.trg, t.dis, t.init_k)]
+    say(f"walks: {len(per_read)} reads enumerate {len(tasks)} gap tasks, "
+        f"{len(prim)} fit the primary config")
+    check(len(prim) >= QUEUE_TASKS, f"walks: only {len(prim)} primary tasks")
+
+    # prep of the bank
+    query, trg, a, used, kbt, kbr = walk._task_arrays(prim, cfg, len(prim), True)
+    up = {k: torch.from_numpy(v).cuda() for k, v in a.items()}
+    pargs = (wx, torch.from_numpy(query).cuda(), up["q_len"], torch.from_numpy(trg).cuda(),
+             up["n_term"], up["init_k"], up["min_overlap"], cfg, kbt, kbr, True)
+    got = walk._prep_kernel(*pargs)
+    with rank.RowTracker(ix) as rc:
+        want, plain_ms = time_once(lambda: walk.prep_plain(*pargs))
+    T = len(prim)
+    io = (sum(t.numel() * t.element_size() for t in pargs[1:7])
+          + sum(v.numel() * v.element_size() for v in got.values()))
+    rec["walk_prep"] = dict(err=tensors_err(got, want),
+                            ms=time_ms(lambda: walk._prep_kernel(*pargs)),
+                            plain_ms=plain_ms, bytes=io + rc.rows * 132,
+                            shape=f"T={T}, {rc.rows} index rows")
+    del got, want
+
+    # one superstep, and a walk to completion, of a 512-lane batch
+    bcfg = replace(cfg, G=WALK_BATCH)
+    consts, state = walk.build_batch(wx, prim[:WALK_BATCH], bcfg, e, cov)
+    st_bytes = nbytes(state)
+    c_bytes = sum(getattr(consts, f).numel() * getattr(consts, f).element_size()
+                  for f in walk.CONST_FIELDS)
+    for nsteps, key in ((1, "one"), (MAX_STEPS, "all")):
+        clones = [walk.clone(state) for _ in range(REPS + 3)]
+        sk = clones.pop()
+        rk = walk.walk_steps(wx, consts, sk, bcfg, nsteps)
+        sp = clones.pop()
+        with rank.RowTracker(ix) as rc:
+            rp, plain_ms = time_once(lambda: walk.walk_steps_plain(wx, consts, sp, bcfg, nsteps))
+        it = iter(clones)
+        ms = time_ms(lambda: walk.walk_steps(wx, consts, next(it), bcfg, nsteps), reps=REPS)
+        rec[f"walk_steps_{key}"] = dict(
+            err=max(tensors_err(sk, sp), tensors_err(rk, rp)), ms=ms, plain_ms=plain_ms,
+            bytes=c_bytes + 2 * st_bytes + nbytes(rk) + rc.rows * 132,
+            shape=f"G={WALK_BATCH}, steps {int(sp.cur_len.max() - consts.init_k.min())} "
+                  f"max, codes {sorted(set(rk.code.tolist()))}, {rc.rows} index rows")
+        del clones, sk, sp
+    state = None
+
+    # the queue engine on 1024 tasks of the bank
+    qcfg = cfg
+    bank = walk.build_bank(wx, prim[:QUEUE_TASKS], qcfg, e, cov)
+    got = walk.walk_queue(wx, bank, QUEUE_TASKS, qcfg, MAX_STEPS)
+    with rank.RowTracker(ix) as rc:
+        want, plain_ms = time_once(lambda: walk.walk_queue_plain(wx, bank, QUEUE_TASKS,
+                                                                 qcfg, MAX_STEPS))
+    dev = bank.consts.q_len.device
+    lane = nbytes(walk.init_state(*walk._bank_rows(bank, torch.zeros(1, dtype=torch.long,
+                                                                       device=dev)),
+                                  torch.ones(1, dtype=torch.bool, device=dev), qcfg))
+    rec["walk_queue"] = dict(
+        err=tensors_err(got, want),
+        ms=time_ms(lambda: walk.walk_queue(wx, bank, QUEUE_TASKS, qcfg, MAX_STEPS)),
+        plain_ms=plain_ms,
+        bytes=nbytes(bank.consts) + nbytes(bank.root) + 2 * QUEUE_TASKS * lane
+        + nbytes(got) + rc.rows * 132,
+        shape=f"T={QUEUE_TASKS}, codes {sorted(set(got.code.tolist()))}, "
+              f"{rc.rows} index rows")
+    del bank, got, want
+    torch.cuda.synchronize()
+    for k, r in rec.items():
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], 0)
+    say("walks: " + json.dumps([
+        {"name": k, "max_abs_err": r["err"], "ms": round(r["ms"], 4),
+         "plain_ms": round(r["plain_ms"], 3), "bound_ms": round(r["bound_ms"], 5),
+         "bytes": r["bytes"], "shape": r["shape"]} for k, r in rec.items()])
+        + f" in {time.perf_counter() - t_phase:.1f}s")
+
+    checks = ConfigChecks(corrector, prim)
+    checks.main_path(tasks)
+    bad = [k for k, r in rec.items() if r["err"] != 0]
+    check(not bad, f"walks: {bad} differ from their plain versions")
+    # walk_steps is reported by its run to completion at G=512
+    rec["walk_steps"] = rec["walk_steps_all"]
+    for r in rec.values():
+        r["max_abs_err"] = r["err"]
+    return rec, checks
+
+
+class ConfigChecks:
+    """walk_steps (to completion) and walk_queue held against their plain
+    versions on the card at every config the main path launches them at:
+    the queue banks (the bulk), the batch-engine buckets at their own
+    config and size, the wide (-200) and dense (-300) reruns of flagged
+    lanes; an L = max_leaves and a SLAB=False batch and every config of
+    the ladder are always among them.
+    ``steps`` maps each config (G = 0) to its record."""
+
+    def __init__(self, corrector, pool):
+        self.c = corrector
+        self.pool = pool       # tasks for configs with none of their own
+        self.steps = {}
+        self.queue = {}
+        self.t = 0.0
+
+    def _flagged(self, work, label, chunk, red, cfg):
+        from longreadselfcorrect_tpu_torch.ops import walk
+
+        codes, over = red.code.tolist(), red.overflow.tolist()
+        for code, kind, make in ((-200, "wide", walk.wide_config),
+                                 (-300, "dense", walk.dense_config)):
+            sub = [t for t, c, o in zip(chunk, codes, over) if c == code and not o]
+            if sub and not (code == -200 and cfg.L >= cfg.max_leaves):
+                work.append((f"{label}/{kind}", sub, make(cfg)))
+
+    def steps_check(self, label, chunk, cfg):
+        """walk_steps to completion against walk_steps_plain on chunk at
+        cfg (G = len(chunk)).  Returns the kernel's reduction."""
+        from dataclasses import replace
+
+        from longreadselfcorrect_tpu_torch.ops import walk
+
+        c = self.c
+        t0 = time.perf_counter()
+        chunk = chunk[:STEP_CHECK_TASKS]
+        check(bool(chunk), f"walks: no task for {label}")
+        cfg = replace(cfg, G=len(chunk))
+        e, cov = c.params.error_rate, c.params.pb_coverage
+        consts, state = walk.build_batch(c.wx, chunk, cfg, e, cov)
+        sk = walk.clone(state)
+        rk, ms = time_once(lambda: walk.walk_steps(c.wx, consts, sk, cfg, MAX_STEPS))
+        rp, plain_ms = time_once(lambda: walk.walk_steps_plain(c.wx, consts, state, cfg,
+                                                              MAX_STEPS))
+        self.steps[replace(cfg, G=0)] = dict(
+            label=label, L=cfg.L, MAXLEN=cfg.MAXLEN, KMAX=cfg.KMAX, SLAB=cfg.SLAB,
+            SB=cfg.SB, G=len(chunk), err=max(tensors_err(sk, state), tensors_err(rk, rp)),
+            ms=round(ms, 4), plain_ms=round(plain_ms, 3),
+            codes=sorted(set(rk.code.tolist())))
+        self.t += time.perf_counter() - t0
+        return rk
+
+    def main_path(self, tasks):
+        """Route the tasks as _submit_tasks does, run each queue bank on the
+        card for its flagged lanes, and check every config reached."""
+        from dataclasses import replace
+
+        from longreadselfcorrect_tpu_torch.ops import walk
+
+        c = self.c
+        t0 = time.perf_counter()
+        e, cov = c.params.error_rate, c.params.pb_coverage
+        work, bulk = [], (None, [])
+        for engine, cfg, sel in c.buckets(tasks):
+            chunk = [tasks[i] for i in sel]
+            name = ("bulk" if engine == "queue" else "bucket") + f" KMAX={cfg.KMAX}"
+            if engine == "batch":
+                work.append((f"{name} MAXLEN={cfg.MAXLEN} SLAB={cfg.SLAB}", chunk, cfg))
+                continue
+            if len(chunk) > len(bulk[1]):
+                bulk = (cfg, chunk)
+            bank = walk.build_bank(c.wx, chunk, cfg, e, cov)
+            red = walk.walk_queue(c.wx, bank, len(chunk), cfg, MAX_STEPS)
+            self._flagged(work, name, chunk, red, cfg)
+            key = replace(cfg, G=0)
+            if key != replace(c.cfg, G=0) and key not in self.queue:
+                # the primary config's queue is checked on 1024 tasks above
+                n = min(len(chunk), QUEUE_LO_TASKS)
+                got = walk.walk_queue(c.wx, bank, n, cfg, MAX_STEPS)
+                want, plain_ms = time_once(lambda: walk.walk_queue_plain(
+                    c.wx, bank, n, cfg, MAX_STEPS))
+                self.queue[key] = dict(label=name, T=n, err=tensors_err(got, want),
+                                       plain_ms=round(plain_ms, 3))
+        self.t += time.perf_counter() - t0
+        while work:
+            label, chunk, cfg = work.pop(0)
+            if replace(cfg, G=0) not in self.steps:
+                self._flagged(work, label, chunk, self.steps_check(label, chunk, cfg), cfg)
+        # the L = max_leaves and the dense variants of the bulk's config,
+        # and the rest of the ladder, whether or not this run's tasks
+        # reach them: on the bulk's tasks, and pool tasks that fit
+        check(bool(bulk[1]), "walks: no task fits a queue bank")
+        for kind, cfg in (("wide", walk.wide_config(bulk[0])),
+                          ("dense", walk.dense_config(bulk[0]))):
+            if replace(cfg, G=0) not in self.steps:
+                self.steps_check(f"bulk KMAX={cfg.KMAX}/{kind} (any lanes)", bulk[1], cfg)
+        for cfg in (c.cfg_big, c.cfg_huge, c.cfg_deep, c.cfg_dense):
+            if replace(cfg, G=0) not in self.steps:
+                self.cover(cfg, f"ladder KMAX={cfg.KMAX} MAXLEN={cfg.MAXLEN} "
+                                f"SLAB={cfg.SLAB} (pool tasks)")
+        self.report("walks")
+
+    def cover(self, cfg, label="main path only"):
+        """Check cfg (G = 0: at most STEP_CHECK_TASKS lanes) on pool tasks
+        that fit it."""
+        c = self.c
+        fit = [t for t in self.pool if t.max_overlap + 1 <= cfg.KMAX
+               and c._task_fits(t.src, t.path, t.trg, t.dis, t.init_k, cfg)]
+        check(bool(fit), f"walks: no task fits {cfg}")
+        self.steps_check(label, fit[: cfg.G or len(fit)], cfg)
+
+    @property
+    def err(self):
+        return max([r["err"] for r in self.steps.values()]
+                   + [r["err"] for r in self.queue.values()])
+
+    def report(self, phase):
+        say(f"{phase}: walk_steps to completion per config: "
+            + json.dumps(list(self.steps.values()))
+            + "; walk_queue per config: " + json.dumps(list(self.queue.values()))
+            + f" in {self.t:.1f}s")
+        check(self.err == 0, f"{phase}: a config differs from its plain version")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the seed phase on all noisy reads
 # ---------------------------------------------------------------------------
 
 def _sig(s):
@@ -435,7 +788,7 @@ def phase_seeds(corrector, hix, items):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: pbcorrect end to end
+# phase 7: pbcorrect end to end
 # ---------------------------------------------------------------------------
 
 COUNTERS = ("merge", "corrected_strs", "total_reads_len", "corrected_len",
@@ -443,36 +796,141 @@ COUNTERS = ("merge", "corrected_strs", "total_reads_len", "corrected_len",
             "exceed_depth_num", "exceed_leave_num", "fm_num", "dp_num", "seed_dis")
 
 
-def phase_correct(corrector, hix, items):
+def run_stream(corrector, items):
+    """process_stream over items in pbcorrect's batches; the results."""
+    batches = [items[b : b + BATCH_READS] for b in range(0, len(items), BATCH_READS)]
+    return [r for part in corrector.process_stream(batches) for r in part]
+
+
+def stream_line(corrector, results, dt) -> str:
+    pt, st = corrector.phase_times, corrector.stats
+    total = st["prefetch_hit"] + st["prefetch_miss"] + st["host_fallback"]
+    n = len(results)
+    return (f"{n} reads in {dt:.3f}s = {n / dt:.4f} reads/s; split seed "
+            f"{pt['seed']:.3f}s walks {pt['walks']:.3f}s replay {pt['replay']:.3f}s; "
+            f"gaps {st['gaps']}; gap lookups {total}: {json.dumps(st)}; "
+            f"merged {sum(r.merge for r in results)}/{n}, fm_num "
+            f"{sum(r.fm_num for r in results)}, dp_num {sum(r.dp_num for r in results)}")
+
+
+def phase_correct(hix, dix, params, items, checks):
+    """pbcorrect's path as the CLI takes it on the first run over a pack:
+    the walk's interval tables (built anew), then BatchedSelfCorrector's
+    process_stream over all noisy reads; launch counts reset just before.
+    Every config walk_steps ran at is then held against its plain version
+    (if phase 5 did not already).  Returns (launches, WalkIndex)."""
     import torch
 
+    from longreadselfcorrect_tpu_torch.core.batch_correct import BatchedSelfCorrector
     from longreadselfcorrect_tpu_torch.core.correct import SelfCorrector
-    from longreadselfcorrect_tpu_torch.ops import cuda
+    from longreadselfcorrect_tpu_torch.ops import cuda, walk
 
-    batch = items[:N_END_TO_END]
     torch.cuda.synchronize()
     cuda.reset_launches()
+    walk.STEP_CONFIGS.clear()
     t0 = time.perf_counter()
-    results = [r for part in corrector.process_stream([batch]) for r in part]
+    wx = walk.WalkIndex.build(dix, hix, walk.walk_ck(hix.bwt.n), reuse=False)
+    torch.cuda.synchronize()
+    t_tables = time.perf_counter() - t0
+    corrector = BatchedSelfCorrector(hix, wx, params)
+    t0 = time.perf_counter()
+    results = run_stream(corrector, items)
     dt = time.perf_counter() - t0
     launches = dict(cuda.LAUNCHES)
-    host = SelfCorrector(hix, corrector.params)
+    step_cfgs = dict(walk.STEP_CONFIGS)
+    check(len(results) == len(items), f"correct: {len(results)} results")
+    host = SelfCorrector(hix, params)
     t1 = time.perf_counter()
-    for (rid, seq), res in zip(batch, results):
+    for (rid, seq), res in zip(items[:N_HOST_CHECK], results):
         want = host.process(rid, seq)
         for name in COUNTERS:
             check(getattr(res, name) == getattr(want, name),
                   f"correct: read {rid} {name} differs from the host SelfCorrector")
     t_host = time.perf_counter() - t1
-    pt = corrector.phase_times
-    say(f"correct: {len(batch)} reads in {dt:.3f}s = {len(batch) / dt:.4f} reads/s "
-        f"(host SelfCorrector {len(batch) / t_host:.4f} reads/s); split seed "
-        f"{pt['seed']:.4f}s walks {pt['walks']:.3f}s replay {pt['replay']:.3f}s; "
-        f"merged {sum(r.merge for r in results)}/{len(batch)}; launches "
-        f"{json.dumps(launches)}; equal to the host SelfCorrector")
+    say(f"correct: tables (ck={wx.ck}, {wx.ck - walk.CACHE_K} level-ups + writing "
+        f"wcache{wx.ck}.npy) {t_tables:.3f}s, then the stream: "
+        f"{stream_line(corrector, results, dt)}; "
+        f"host SelfCorrector {N_HOST_CHECK / t_host:.4f} reads/s on the first "
+        f"{N_HOST_CHECK}, all equal; launches {json.dumps(launches)}; walk_steps "
+        f"configs {json.dumps([dict(L=k.L, MAXLEN=k.MAXLEN, KMAX=k.KMAX, SLAB=k.SLAB, SB=k.SB, launches=v) for k, v in step_cfgs.items()])}")
     missing = [k for k, v in launches.items() if v <= 0]
     check(not missing, f"correct: kernels {missing} were not launched on the main path")
-    return launches
+    new = [k for k in step_cfgs if k not in checks.steps]
+    for k in new:
+        checks.cover(k)
+    if new:
+        checks.report("correct")
+    return launches, wx
+
+
+def busy_us(spans, a, b) -> float:
+    """Microseconds of [a, b] covered by the union of the spans."""
+    total, end = 0.0, a
+    for s, e in spans:
+        s, e = max(s, end), min(e, b)
+        if e > s:
+            total += e - s
+            end = e
+    return total
+
+
+def phase_trace(hix, wx, params, items):
+    """One pass over the noisy reads under torch.profiler: the device's
+    busy share of the pass and of each corrector phase, and the device
+    time of each kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from longreadselfcorrect_tpu_torch.core.batch_correct import BatchedSelfCorrector
+
+    corrector = BatchedSelfCorrector(hix, wx, params)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("pbcorrect.pass"):
+            run_stream(corrector, items)
+            torch.cuda.synchronize()
+    events = prof.events()
+    # kernels and copies; not the ranges' own device-side annotations
+    dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                 if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith("pbcorrect."))
+    spans = [(s, e) for s, e, _ in dev]
+    ranges = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith("pbcorrect."):
+            ranges.setdefault(e.name[len("pbcorrect."):], []).append(
+                (e.time_range.start, e.time_range.end))
+    if not dev:
+        say("trace: the profiler recorded no device activity: busy share not measured")
+        return
+    out = {}
+    for name, rs in ranges.items():
+        wall = sum(b - a for a, b in rs)
+        busy = sum(busy_us(spans, a, b) for a, b in rs)
+        out[name] = dict(wall_s=round(wall / 1e6, 4), device_busy_s=round(busy / 1e6, 4),
+                         busy_share=round(busy / wall, 4) if wall else None)
+    per = {}
+    for s, e, n in dev:
+        per[n] = per.get(n, 0.0) + (e - s)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
+    say(f"trace: {len(items)} reads, device activity per phase "
+        f"(host wall, device busy = union of kernels and copies): {json.dumps(out)}; "
+        f"device ms by name: "
+        f"{json.dumps({n[:60]: round(t / 1e3, 3) for n, t in top})}")
+
+
+def phase_throughput(hix, wx, params, extra):
+    """Steady-state throughput: the tables already built, process_stream
+    over the further noisy reads."""
+    from longreadselfcorrect_tpu_torch.core.batch_correct import BatchedSelfCorrector
+
+    corrector = BatchedSelfCorrector(hix, wx, params)
+    t0 = time.perf_counter()
+    results = run_stream(corrector, extra)
+    dt = time.perf_counter() - t0
+    check(len(results) == len(extra), f"throughput: {len(results)} results")
+    say(f"throughput: tables warm, {stream_line(corrector, results, dt)}")
 
 
 def main() -> int:
@@ -481,16 +939,27 @@ def main() -> int:
     sys.path.insert(0, REPO)
     name, _ = phase_device()
     phase_build()
-    hix, dix, items = phase_data()
+    hix, dix, items, extra = phase_data()
 
     from longreadselfcorrect_tpu_torch.core.batch_correct import BatchedSelfCorrector
     from longreadselfcorrect_tpu_torch.core.correct import CorrectionParams
 
-    corrector = BatchedSelfCorrector(hix, dix, CorrectionParams(pb_coverage=COVERAGE,
-                                                                genome=10))
+    params = CorrectionParams(pb_coverage=COVERAGE, genome=10)
+    corrector = BatchedSelfCorrector(hix, dix, params)
     rec = phase_kernels(corrector, items)
+    walks, checks = phase_walks(corrector, items)
+    rec.update(walks)
     phase_seeds(corrector, hix, items)
-    launches = phase_correct(corrector, hix, items)
+    launches, wx = phase_correct(hix, dix, params, items, checks)
+    t0 = time.perf_counter()
+    phase_trace(hix, wx, params, items)
+    say(f"trace: in {time.perf_counter() - t0:.1f}s")
+    phase_throughput(hix, wx, params, extra)
+    rec["walk_steps"]["max_abs_err"] = max([rec["walk_steps_one"]["err"],
+                                            rec["walk_steps_all"]["err"]]
+                                           + [r["err"] for r in checks.steps.values()])
+    rec["walk_queue"]["max_abs_err"] = max([rec["walk_queue"]["err"]]
+                                           + [r["err"] for r in checks.queue.values()])
 
     kernels = []
     for k, (source, replaces) in KERNEL_INFO.items():

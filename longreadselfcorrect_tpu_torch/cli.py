@@ -3,10 +3,10 @@
   index       build BWT/RBWT of a read set          (StriDe/index.cpp)
   pbcorrect   PacBio self-correction                (StriDe/PacBioSelfCorrection.cpp)
 
-pbcorrect's default is the device engine on CUDA: the seed phase runs as
-the CUDA kernels of ops/, the walks and MSA fallback on the host.  There is
-no fallback: without a GPU, pass --device cpu (plain torch seed phase) or
---engine host (the numpy engine).
+pbcorrect's default is the device engine on CUDA: the seed phase and the
+FM-extension walks run as the CUDA kernels of ops/, the MSA/DP fallback on
+the host.  There is no fallback: without a GPU, pass --device cpu (the
+plain torch versions) or --engine host (the numpy engine).
 """
 from __future__ import annotations
 
@@ -218,8 +218,8 @@ def main(argv=None) -> int:
                    help="dump per-read seed files under <output>/seed/ and "
                         "failed-gap traces under <output>/extend/ (.ext/.dp)")
     p.add_argument("--engine", choices=("host", "device"), default="device",
-                   help="device: seed phase batched on --device; host: the "
-                        "single-thread numpy engine")
+                   help="device: seed phase and walks batched on --device; "
+                        "host: the single-thread numpy engine")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the device engine runs (cpu: plain torch)")
     p.add_argument("--batch-reads", type=int, default=64, dest="batch_reads")

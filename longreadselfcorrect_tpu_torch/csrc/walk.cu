@@ -1,0 +1,356 @@
+// The FM-extension walk engine: four kernels replacing the JAX package's
+// ops/walk.py device functions (the per-lane logic is in walk.cuh).
+//
+// * wcache_level_up (walk.py:124 _wcache_level_up): one thread per child
+//   code; four rank queries each.  Bound: the random index rows of the
+//   rank queries (one 128-byte row + a checkpoint word each), then the
+//   4 x 16 B per child written.
+// * walk_prep (walk.py:371 _prep_core via :586/:598/:1986): one block per
+//   task; its threads split the qcode rows, the terminal windows and the
+//   chain-ring slots; thread 0 does the root interval and the tails.
+//   Bound: the LF ladders' rank rows.
+// * walk_steps (walk.py:997 superstep, :1639 multistep, :1647
+//   run_to_completion, :1600 _reduce_results): one thread per gap lane runs
+//   up to n supersteps (a lane that has finished no longer changes, so
+//   multistep and run_to_completion are the same loop), then reduces.
+// * walk_queue (walk.py:1802 queue_run): a persistent kernel; each thread
+//   is a lane that takes the next task of the bank from a head counter
+//   (atomicAdd), seeds it (_init_state), walks it to completion or
+//   max_steps (-900) and writes its reduction.  A task's result does not
+//   depend on the lane that walks it.
+// Bound of the walk kernels: the rank queries of every superstep (random
+// rows in a 2 x ~140 MB index at the bench scale) and the lane state,
+// read and written once per step.  The design is the simple one, one
+// thread per lane with the state in global memory; a block-per-lane
+// layout with a thread per candidate is the way to make it faster.
+//
+// Built with -fmad=false -prec-div=true -ftz=false: the f32 compares must
+// give the JAX results bit for bit (walk.cuh).
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "walk.cuh"
+
+namespace {
+
+using namespace lrsc::walk;
+
+constexpr int kLaneThreads = 64;
+
+// argument arrays from the Python wrappers (ops/walk.py), in its order
+struct Args {
+  void* const* p;
+  const int* d;
+  int pi = 0, di = 0;
+  template <class T>
+  T ptr() { return reinterpret_cast<T>(p[pi++]); }
+  int num() { return d[di++]; }
+};
+
+Index read_index(Args& a) {
+  Index ix;
+  ix.fb = a.ptr<const int8_t*>();
+  ix.fck = a.ptr<const int*>();
+  ix.fC = a.ptr<const int*>();
+  ix.rb = a.ptr<const int8_t*>();
+  ix.rck = a.ptr<const int*>();
+  ix.rC = a.ptr<const int*>();
+  ix.fnb = a.num();
+  ix.rnb = a.num();
+  ix.wcache = nullptr;
+  return ix;
+}
+
+Cfg read_cfg(Args& a) {
+  Cfg c;
+  c.L = a.num();
+  c.MAXLEN = a.num();
+  c.QMAX = a.num();
+  c.TMAX = a.num();
+  c.RMAX = a.num();
+  c.RING = a.num();
+  c.KMAX = a.num();
+  c.SS = a.num();
+  c.MAXLEAVES = a.num();
+  c.CK = a.num();
+  c.SLAB = a.num();
+  c.SB = a.num();
+  c.NC = c.KMAX - c.CK + 1;
+  return c;
+}
+
+Consts read_consts(Args& a) {
+  Consts k;
+  k.query = a.ptr<const int8_t*>();
+  k.q_len = a.ptr<const int*>();
+  k.trg = a.ptr<const int8_t*>();
+  k.trg_len = a.ptr<const int*>();
+  k.n_term = a.ptr<const int*>();
+  k.term_f = a.ptr<const int*>();
+  k.term_r = a.ptr<const int*>();
+  k.qcode9 = a.ptr<const int*>();
+  k.qcode5 = a.ptr<const int*>();
+  k.init_k = a.ptr<const int*>();
+  k.max_overlap = a.ptr<const int*>();
+  k.min_overlap = a.ptr<const int*>();
+  k.min_sa = a.ptr<const int*>();
+  k.max_indel = a.ptr<const int*>();
+  k.max_length = a.ptr<const int*>();
+  k.min_length = a.ptr<const int*>();
+  k.no_term = a.ptr<const bool*>();
+  k.freqs = a.ptr<const float*>();
+  k.pacbio_e = a.ptr<const float*>();
+  k.err_bound = a.ptr<const float*>();
+  return k;
+}
+
+State read_state(Args& a) {
+  State s;
+  s.labels = a.ptr<int8_t*>();
+  s.f_lo = a.ptr<int*>();
+  s.f_hi = a.ptr<int*>();
+  s.r_lo = a.ptr<int*>();
+  s.r_hi = a.ptr<int*>();
+  s.alive = a.ptr<bool*>();
+  s.kmer_freq = a.ptr<int*>();
+  s.total_kmer = a.ptr<int*>();
+  s.last_seed_idx = a.ptr<int*>();
+  s.last_overlap_len = a.ptr<int*>();
+  s.total_seeds = a.ptr<int*>();
+  s.curr_overlap_len = a.ptr<int*>();
+  s.num_errors = a.ptr<int*>();
+  s.seed_idx_offset = a.ptr<int*>();
+  s.query_overlap_len = a.ptr<int*>();
+  s.red_a = a.ptr<int*>();
+  s.red_b = a.ptr<int*>();
+  s.res_first = a.ptr<int*>();
+  s.res_second = a.ptr<int*>();
+  s.tail_letter = a.ptr<int8_t*>();
+  s.tail_count = a.ptr<int*>();
+  s.tail9 = a.ptr<int*>();
+  s.tail8 = a.ptr<int*>();
+  s.chain = a.ptr<int*>();
+  s.local_err = a.ptr<float*>();
+  s.gerr_last = a.ptr<float*>();
+  s.ring = a.ptr<float*>();
+  s.active = a.ptr<bool*>();
+  s.cur_len = a.ptr<int*>();
+  s.cur_k = a.ptr<int*>();
+  s.gerr_n = a.ptr<int*>();
+  s.code = a.ptr<int*>();
+  s.res_labels = a.ptr<int8_t*>();
+  s.res_len = a.ptr<int*>();
+  s.res_err = a.ptr<float*>();
+  s.res_i = a.ptr<int*>();
+  s.res_count = a.ptr<int*>();
+  s.res_overflow = a.ptr<bool*>();
+  return s;
+}
+
+Reduced read_reduced(Args& a) {
+  Reduced r;
+  r.code = a.ptr<int*>();
+  r.overflow = a.ptr<bool*>();
+  r.has = a.ptr<bool*>();
+  r.lab = a.ptr<int8_t*>();
+  r.len = a.ptr<int*>();
+  r.i = a.ptr<int*>();
+  return r;
+}
+
+Root read_root(Args& a) {
+  Root r;
+  r.f_lo = a.ptr<const int*>();
+  r.f_hi = a.ptr<const int*>();
+  r.r_lo = a.ptr<const int*>();
+  r.r_hi = a.ptr<const int*>();
+  r.freq = a.ptr<const int*>();
+  r.chain0 = a.ptr<const int*>();
+  r.tail9 = a.ptr<const int*>();
+  r.tail8 = a.ptr<const int*>();
+  r.tail_letter = a.ptr<const int8_t*>();
+  r.tail_count = a.ptr<const int*>();
+  return r;
+}
+
+__host__ __device__ int scratch_words(const Cfg& c) {
+  return (c.L * c.MAXLEN + 3) / 4 + c.L * c.RING + c.L * 4 * c.NC;
+}
+
+// ---------------------------------------------------------------------------
+
+__global__ void wcache_level_up_kernel(Index ix, int n, const int* __restrict__ f_lo,
+                                       const int* __restrict__ f_hi,
+                                       const int* __restrict__ r_lo,
+                                       const int* __restrict__ r_hi, int* o0, int* o1,
+                                       int* o2, int* o3) {
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= 4LL * n) return;
+  const int parent = (int)(c >> 2), sym = (int)(c & 3) + 1, csym = 5 - sym;
+  int a = f_lo[parent], z = f_hi[parent];
+  lf_f(ix, sym, a, z);
+  int u = r_lo[parent], w = r_hi[parent];
+  lf_r(ix, csym, u, w);
+  o0[c] = a;
+  o1[c] = z;
+  o2[c] = u;
+  o3[c] = w;
+}
+
+__global__ void walk_prep_kernel(Index ix, PrepIn P, PrepOut O, int T) {
+  const int t = blockIdx.x;
+  if (t < T) prep_task(ix, P, O, t, threadIdx.x, blockDim.x);
+}
+
+template <int LM>
+__global__ void walk_steps_kernel(Index ix, Cfg cf, Consts K, State S, Reduced R,
+                                  int* scratch, int G, int n) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= G) return;
+  const Lane<LM> lane{ix, cf, K, S, g, g};
+  int* scr = scratch + (size_t)g * scratch_words(cf);
+  for (int s = 0; s < n; ++s) {
+    if (!S.active[g] || S.code[g] != 0) break;
+    lane.step(scr);
+  }
+  lane.reduce(R, g);
+}
+
+template <int LM>
+__global__ void walk_queue_kernel(Index ix, Cfg cf, Consts K, State S, Reduced R,
+                                  int* scratch, Root RT, int* head, int G,
+                                  int max_steps, int n) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= G) return;
+  int* scr = scratch + (size_t)g * scratch_words(cf);
+  for (;;) {
+    const int t = atomicAdd(head, 1);
+    if (t >= n) break;
+    const Lane<LM> lane{ix, cf, K, S, g, t};
+    lane.seed(RT);
+    int steps = 0;
+    while (steps < max_steps && S.code[g] == 0) {
+      lane.step(scr);
+      ++steps;
+    }
+    if (S.code[g] == 0) S.code[g] = -900;
+    lane.reduce(R, t);
+  }
+}
+
+template <int LM>
+int launch_steps(Index ix, Cfg cf, Consts K, State S, Reduced R, int* scratch, int G,
+                 int n, cudaStream_t st) {
+  const int blocks = (G + kLaneThreads - 1) / kLaneThreads;
+  walk_steps_kernel<LM><<<blocks, kLaneThreads, 0, st>>>(ix, cf, K, S, R, scratch, G, n);
+  return (int)cudaGetLastError();
+}
+
+template <int LM>
+int launch_queue(Index ix, Cfg cf, Consts K, State S, Reduced R, int* scratch, Root RT,
+                 int* head, int G, int max_steps, int n, cudaStream_t st) {
+  const int blocks = (G + kLaneThreads - 1) / kLaneThreads;
+  walk_queue_kernel<LM><<<blocks, kLaneThreads, 0, st>>>(ix, cf, K, S, R, scratch, RT,
+                                                         head, G, max_steps, n);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Each entry takes a host array of device pointers and a host array of
+// ints, in the order ops/walk.py builds them, and the stream.
+extern "C" int lrsc_wcache_level_up(void* const* p, const int* d, void* stream) {
+  Args a{p, d};
+  Index ix = read_index(a);
+  const int* f_lo = a.ptr<const int*>();
+  const int* f_hi = a.ptr<const int*>();
+  const int* r_lo = a.ptr<const int*>();
+  const int* r_hi = a.ptr<const int*>();
+  int* o[4];
+  for (int q = 0; q < 4; ++q) o[q] = a.ptr<int*>();
+  const int n = a.num();
+  const long long lanes = 4LL * n;
+  const int threads = 256;
+  if (lanes > 0) {
+    wcache_level_up_kernel<<<(unsigned)((lanes + threads - 1) / threads), threads, 0,
+                             (cudaStream_t)stream>>>(ix, n, f_lo, f_hi, r_lo, r_hi, o[0],
+                                                     o[1], o[2], o[3]);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lrsc_walk_prep(void* const* p, const int* d, void* stream) {
+  Args a{p, d};
+  Index ix = read_index(a);
+  PrepIn P;
+  P.query = a.ptr<const int8_t*>();
+  P.q_len = a.ptr<const int*>();
+  P.trg = a.ptr<const int8_t*>();
+  P.n_term = a.ptr<const int*>();
+  P.init_k = a.ptr<const int*>();
+  P.min_overlap = a.ptr<const int*>();
+  ix.wcache = a.ptr<const int*>();
+  PrepOut O;
+  O.qcode9 = a.ptr<int*>();
+  O.qcode5 = a.ptr<int*>();
+  O.term_f = a.ptr<int*>();
+  O.term_r = a.ptr<int*>();
+  O.f_lo = a.ptr<int*>();
+  O.f_hi = a.ptr<int*>();
+  O.r_lo = a.ptr<int*>();
+  O.r_hi = a.ptr<int*>();
+  O.freq = a.ptr<int*>();
+  O.chain0 = a.ptr<int*>();
+  O.tail9 = a.ptr<int*>();
+  O.tail8 = a.ptr<int*>();
+  O.tail_letter = a.ptr<int8_t*>();
+  O.tail_count = a.ptr<int*>();
+  const int T = a.num();
+  P.QMAX = a.num();
+  P.TMAX = a.num();
+  P.KMAX = a.num();
+  P.CK = a.num();
+  P.SS = a.num();
+  P.kb_term = a.num();
+  P.kb_root = a.num();
+  P.use_wcache = a.num();
+  if (T > 0) walk_prep_kernel<<<T, 64, 0, (cudaStream_t)stream>>>(ix, P, O, T);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lrsc_walk_steps(void* const* p, const int* d, void* stream) {
+  Args a{p, d};
+  Index ix = read_index(a);
+  ix.wcache = a.ptr<const int*>();
+  Consts K = read_consts(a);
+  State S = read_state(a);
+  Reduced R = read_reduced(a);
+  int* scratch = a.ptr<int*>();
+  Cfg cf = read_cfg(a);
+  const int G = a.num(), n = a.num();
+  if (cf.L > 32 || cf.RMAX > 64) return (int)cudaErrorInvalidValue;
+  if (G == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  return cf.L <= 4 ? launch_steps<4>(ix, cf, K, S, R, scratch, G, n, st)
+                   : launch_steps<32>(ix, cf, K, S, R, scratch, G, n, st);
+}
+
+extern "C" int lrsc_walk_queue(void* const* p, const int* d, void* stream) {
+  Args a{p, d};
+  Index ix = read_index(a);
+  ix.wcache = a.ptr<const int*>();
+  Consts K = read_consts(a);
+  State S = read_state(a);
+  Reduced R = read_reduced(a);
+  int* scratch = a.ptr<int*>();
+  Root RT = read_root(a);
+  int* head = a.ptr<int*>();
+  Cfg cf = read_cfg(a);
+  const int G = a.num(), max_steps = a.num(), n = a.num();
+  if (cf.L > 32 || cf.RMAX > 64) return (int)cudaErrorInvalidValue;
+  if (G == 0 || n == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  return cf.L <= 4 ? launch_queue<4>(ix, cf, K, S, R, scratch, RT, head, G, max_steps, n, st)
+                   : launch_queue<32>(ix, cf, K, S, R, scratch, RT, head, G, max_steps, n, st);
+}

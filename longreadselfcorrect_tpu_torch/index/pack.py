@@ -1,10 +1,10 @@
 """Persisted packed FM-index layout: pack once, mmap forever.
 
 The same on-disk format as the JAX package's index/pack.py (meta.json with
-PACK_VERSION, fwd.*/rev.* .npy arrays under <prefix>.pack/), so one pack is
-read by both implementations.  This version writes no walk interval cache
-(wcache.npy): the walk engine is not part of this package yet, and a pack
-that lacks the cache is valid for both readers.
+PACK_VERSION, fwd.*/rev.* .npy arrays and the walk's CACHE_K-mer interval
+table wcache.npy under <prefix>.pack/), so one pack is read by both
+implementations.  The walk engine persists its deeper tables there too,
+as wcache{ck}.npy (ops/walk.get_wcache); writing a pack removes them.
 """
 from __future__ import annotations
 
@@ -68,23 +68,36 @@ def _source_stamp(prefix: str):
 
 
 def save_pack(prefix: str, fwd_pack, rev_pack, num_strings: tuple[int, int],
-              nsyms: tuple[int, int]) -> None:
+              nsyms: tuple[int, int], wcache=None) -> None:
     d = _dir(prefix)
     os.makedirs(d, exist_ok=True)
+    # the deeper walk tables (wcache{ck}.npy) belong to the old pack
+    for name in os.listdir(d):
+        if name.startswith("wcache") and name.endswith(".npy") and name != "wcache.npy":
+            os.remove(os.path.join(d, name))
     for tag, (blocks, ckpt, C) in (("fwd", fwd_pack), ("rev", rev_pack)):
         np.save(os.path.join(d, f"{tag}.blocks.npy"), blocks)
         np.save(os.path.join(d, f"{tag}.ckpt.npy"), ckpt)
         np.save(os.path.join(d, f"{tag}.C.npy"), C)
+    if wcache is not None:
+        np.save(os.path.join(d, "wcache.npy"), wcache)
     meta = {
         "version": PACK_VERSION,
         "block": PACK_BLOCK,
-        "cache_k": None,
+        "cache_k": None if wcache is None else _cache_k(len(wcache)),
         "num_strings": list(num_strings),
         "num_symbols": list(nsyms),
         "source": _source_stamp(prefix),
     }
     with open(os.path.join(d, "meta.json"), "w") as fh:
         json.dump(meta, fh)
+
+
+def _cache_k(rows: int) -> int:
+    k = 0
+    while 4**k < rows:
+        k += 1
+    return k
 
 
 def load_pack(prefix: str):
@@ -106,14 +119,17 @@ def load_pack(prefix: str):
             if not os.path.exists(p):
                 return None
             out[f"{tag}.{part}"] = np.load(p, mmap_mode="r")
+    p = os.path.join(d, "wcache.npy")
+    out["wcache"] = np.load(p, mmap_mode="r") if os.path.exists(p) else None
     return out
 
 
 def open_index(prefix: str, device: str | None = "cuda"):
     """(hix, dix) for an index prefix, packing+persisting on first use.
 
-    hix: HostIndexSet over the packed layout; dix: torch IndexSet on
-    `device`, or None when device is None.
+    hix: HostIndexSet over the packed layout, with the pack's CACHE_K-mer
+    interval table (``_kmer_cache8``) and its directory (``pack_dir``);
+    dix: torch IndexSet on `device`, or None when device is None.
     """
     from . import store
     from .fmindex import FMIndex, IndexSet
@@ -128,9 +144,12 @@ def open_index(prefix: str, device: str | None = "cuda"):
             HostFM.from_pack(*fwd_pack, fwd.num_symbols, fwd.num_strings),
             HostFM.from_pack(*rev_pack, rev.num_symbols, rev.num_strings),
         )
+        from ..ops import walk
+
+        hix._kmer_cache8 = walk.build_kmer_caches(hix)
         save_pack(prefix, fwd_pack, rev_pack,
                   (fwd.num_strings, rev.num_strings),
-                  (fwd.num_symbols, rev.num_symbols))
+                  (fwd.num_symbols, rev.num_symbols), hix._kmer_cache8)
     else:
         ns = pk["meta"]["num_strings"]
         nsym = pk["meta"]["num_symbols"]
@@ -138,6 +157,9 @@ def open_index(prefix: str, device: str | None = "cuda"):
             HostFM.from_pack(pk["fwd.blocks"], pk["fwd.ckpt"], pk["fwd.C"], nsym[0], ns[0]),
             HostFM.from_pack(pk["rev.blocks"], pk["rev.ckpt"], pk["rev.C"], nsym[1], ns[1]),
         )
+        if pk["wcache"] is not None:
+            hix._kmer_cache8 = np.asarray(pk["wcache"])
+    hix.pack_dir = _dir(prefix)
     dix = None
     if device is not None:
         dix = IndexSet(

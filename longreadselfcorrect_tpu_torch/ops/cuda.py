@@ -6,8 +6,8 @@ at first use, under ``build/torch_kernels/<hash of all sources>/`` at the
 repository root, so an edit to any source (``rank.cuh`` included) rebuilds.
 ``build()`` starts one ``nvcc`` per source, all at once.
 
-Each wrapper in ``ops.scan`` / ``ops.seedscan`` adds one to its entry of
-``LAUNCHES`` where it launches its kernel, and nowhere else.
+Each wrapper in ``ops.scan`` / ``ops.seedscan`` / ``ops.walk`` adds one to
+its entry of ``LAUNCHES`` where it launches its kernel, and nowhere else.
 """
 from __future__ import annotations
 
@@ -26,13 +26,18 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
 # library -> its source; the kernels each library holds
-SOURCES = {"kmer_table": "kmer_table.cu", "seedscan": "seedscan.cu"}
+SOURCES = {"kmer_table": "kmer_table.cu", "seedscan": "seedscan.cu",
+           "walk": "walk.cu"}
 KERNELS = {
     "kmer_table_full": "kmer_table",
     "attributes": "seedscan",
     "scan_automaton": "seedscan",
     "estimate_best": "seedscan",
     "remove_hitchhiking": "seedscan",
+    "wcache_level_up": "walk",
+    "walk_prep": "walk",
+    "walk_steps": "walk",
+    "walk_queue": "walk",
 }
 
 # Every float in the seed phase feeds a compare that must equal the JAX f32
@@ -123,6 +128,11 @@ _SIGNATURES = {
                             _I, _F, _F, _P, _P, _P, _P, _P, _P, _P],
     "lrsc_estimate_best": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "lrsc_remove_hitchhiking": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P, _P],
+    # the walk kernels take (pointer array, int array), both in host memory
+    "lrsc_wcache_level_up": [_P, _P, _P],
+    "lrsc_walk_prep": [_P, _P, _P],
+    "lrsc_walk_steps": [_P, _P, _P],
+    "lrsc_walk_queue": [_P, _P, _P],
 }
 
 
@@ -149,6 +159,16 @@ def launch(kernel: str, fn: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
     LAUNCHES[kernel] += 1
+
+
+def ptr_array(ptrs) -> ctypes.Array:
+    """Host array of device pointers (an argument of the walk kernels)."""
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def int_array(vals) -> ctypes.Array:
+    """Host array of ints (an argument of the walk kernels)."""
+    return (ctypes.c_int * len(vals))(*(int(v) for v in vals))
 
 
 def check(kernel: str, t: torch.Tensor, dtype: torch.dtype, shape=None) -> int:

@@ -27,12 +27,48 @@ def comp(sym: torch.Tensor) -> torch.Tensor:
     return torch.where(sym == 0, torch.zeros_like(sym), 5 - sym)
 
 
+class RowTracker:
+    """Marks the index rows that rank queries read while it is active::
+
+        with RowTracker(ix) as rt:
+            ...                  # plain versions
+        rt.rows                  # distinct rows of ix read
+
+    The rows a kernel making the same queries must move (a measuring aid;
+    the plain versions only)."""
+
+    active: "RowTracker | None" = None
+
+    def __init__(self, ix: IndexSet):
+        self.seen = {id(fm): torch.zeros(fm.blocks.shape[0], dtype=torch.bool,
+                                         device=fm.blocks.device)
+                     for fm in (ix.rbwt, ix.bwt)}
+
+    def __enter__(self) -> "RowTracker":
+        RowTracker.active = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        RowTracker.active = None
+
+    def mark(self, fm: FMIndex, q: torch.Tensor) -> None:
+        seen = self.seen.get(id(fm))
+        if seen is not None:
+            seen[q.reshape(-1)] = True
+
+    @property
+    def rows(self) -> int:
+        return sum(int(m.sum()) for m in self.seen.values())
+
+
 def _row(fm: FMIndex, idx: torch.Tensor):
     """(q, r): the block row and in-block prefix length of BWT[0..idx]."""
     p = idx.to(I32) + 1
     q = torch.div(p, fm.block, rounding_mode="floor")
     r = p - q * fm.block
     q = q.clamp(0, fm.blocks.shape[0] - 1).long()
+    if RowTracker.active is not None:
+        RowTracker.active.mark(fm, q)
     return q, r
 
 

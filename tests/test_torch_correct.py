@@ -1,12 +1,16 @@
 """The port's pbcorrect equals the JAX package's host SelfCorrector.
 
-Corrected strings, merge flags and counters are compared with exact
-equality, and the CLI's correct.fa byte for byte.
+The port's BatchedSelfCorrector runs the seed phase and the walks through
+the plain device versions on the CPU (prefetch, miss rounds, host-engine
+fallback).  Corrected strings, merge flags and counters are compared with
+exact equality, and the CLI's correct.fa byte for byte.  These mirror the
+JAX package's tests/test_batch_correct.py end-to-end tests.
 """
 import os
 
 import numpy as np
 import pytest
+import torch
 
 from longreadselfcorrect_tpu import cli as jcli
 from longreadselfcorrect_tpu.core.correct import CorrectionParams as JParams
@@ -19,8 +23,13 @@ from longreadselfcorrect_tpu_torch.core.batch_correct import BatchedSelfCorrecto
 from longreadselfcorrect_tpu_torch.core.correct import CorrectionParams
 from longreadselfcorrect_tpu_torch.index.pack import open_index
 from longreadselfcorrect_tpu_torch.io import fasta
+from longreadselfcorrect_tpu_torch.ops import walk
 
 from test_batch_correct import noisy_reads   # 1.2 kb reads, sub/del/ins
+
+# the walks' tensors are small: one torch thread is faster, and keeps the
+# parallel test workers from oversubscribing the cores
+torch.set_num_threads(1)
 
 COUNTERS = ("merge", "corrected_strs", "total_reads_len", "corrected_len",
             "total_seed_num", "total_walk_num", "high_error_num",
@@ -48,11 +57,13 @@ def corpus(tmp_path_factory):
     return genome, prefix, hix, dix, jhix, d
 
 
-def test_process_batch_matches_jax_host(corpus):
-    genome, _, hix, dix, jhix, _ = corpus
-    items = noisy_reads(genome, np.random.default_rng(7), 6, 0.06)
-    port = BatchedSelfCorrector(hix, dix, CorrectionParams(pb_coverage=30, genome=10))
-    got = port.process_batch(items)
+def corrector(hix, dix):
+    return BatchedSelfCorrector(
+        hix, dix, CorrectionParams(pb_coverage=30, genome=10),
+        cfg=walk.WalkConfig(G=64, MAXLEN=640, QMAX=640, WSCAN=320))
+
+
+def assert_same_as_host(jhix, items, got):
     host = JSelfCorrector(jhix, JParams(pb_coverage=30, genome=10))
     n_fm = 0
     for (rid, seq), res in zip(items, got):
@@ -60,9 +71,25 @@ def test_process_batch_matches_jax_host(corpus):
         for name in COUNTERS:
             assert getattr(res, name) == getattr(want, name), (rid, name)
         n_fm += want.fm_num
+    return n_fm
+
+
+def test_process_batch_matches_jax_host(corpus):
+    """tests/test_batch_correct.py::test_batched_matches_host: 6 reads,
+    every counter equal, and the prefetch serves nearly every gap."""
+    genome, _, hix, dix, jhix, _ = corpus
+    items = noisy_reads(genome, np.random.default_rng(7), 6, 0.06)
+    port = corrector(hix, dix)
+    got = port.process_batch(items)
+    n_fm = assert_same_as_host(jhix, items, got)
     assert n_fm > 0 and all(r.merge for r in got)
     assert set(port.phase_times) == {"seed", "walks", "replay"}
     assert port.phase_times["walks"] > 0
+    st = port.stats
+    total = st["prefetch_hit"] + st["prefetch_miss"] + st["host_fallback"]
+    assert total > 0 and st["prefetch_hit"] >= 0.8 * total, st
+    assert st["host_fallback"] == st["fb_unfit"] + st["fb_flagged"] + st["fb_lastround"]
+    assert st["gaps"] > 0
 
 
 def test_cli_correct_fa_matches_jax_host_cli(corpus):
