@@ -7,14 +7,15 @@ Phases, one line each on stdout (a failing phase raises and the script
 exits non-zero without the final result line):
 
 1. device   the card's name and power limit (nvidia-smi); no CUDA -> fail
-2. build    the nine CUDA kernels from longreadselfcorrect_tpu_torch/csrc
+2. build    the eleven CUDA kernels from longreadselfcorrect_tpu_torch/csrc
             with nvcc, one process per source, all at once
 3. data     the bench corpus recipe: a 4 Mb random genome (seed 2026), 30x
             of 2 kb reads (60,000 reads, ~120M symbols per strand) indexed
             with native/fmbuild and packed (with the host-built 8-mer
             interval table); 256 noisy 1.5 kb reads at 8% error, and 2048
-            further ones (seed 2027); all under .torch_cache/; then the
-            walk's 12-mer interval table, four level-ups on the card
+            further ones (seed 2027); 256 reads at 15% error, pbcorrect's
+            default -e (seed 2028, its own stamp); all under .torch_cache/;
+            then the walk's 12-mer interval table, four level-ups on the card
 4. kernels  each seed-phase kernel against its plain torch version on the
             card, on the 64-read chunks of the noisy reads, exactly; kernel
             and plain times (CUDA events, median of 5 after one warm-up)
@@ -38,9 +39,27 @@ exits non-zero without the final result line):
             seed/walks/replay split, the gaps, prefetch and host-fallback
             counters, the launches, and the configs walk_steps ran at (a
             config phase 5 did not check is checked now)
-8. trace    one more pass over the 256 reads under torch.profiler: the
-            device's busy share of each corrector phase, device ms by kernel
-9. throughput  the stream over the 2048 further reads, tables warm
+8. dp       the walk configs of the 15%-error reads' gap tasks checked as in
+            phase 5; then process_stream over those reads, launch counts
+            reset just before, the MSA kernels' calls recorded: reads/s, the
+            split, the DP fallbacks (reached, succeeded, failed) and their
+            seconds as a share of the replay, the launches (lf_extract and
+            banded_fill must have run); the first 8 reads that reached the
+            DP fallback held against the host SelfCorrector
+9. msa      lf_extract and banded_fill against their plain versions on the
+            card, exactly, on calls the DP path made; kernel and plain
+            times on the median call, with the bound; per call the host
+            route (numpy) against the card route (copies included): the
+            crossover that sets the gates of core/msa.py; both routes of
+            build_multiple_alignment on DP fallbacks of the path, consensus
+            equal
+10. trace   one more pass over the 256 noisy reads under torch.profiler:
+            the device's busy share of each corrector phase, device ms by
+            kernel; then one pass over the 15%-error reads (trace-dp), with
+            the MSA kernels' device ms
+11. throughput  the stream over the 2048 further reads, tables warm, four
+            times: the DP fallback's loops in numpy, on the card, on the
+            card, in numpy; the outputs equal
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -53,6 +72,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(REPO, ".torch_cache")
@@ -64,6 +84,13 @@ N_NOISY = 256
 N_HOST_SEEDS = 16
 N_HOST_CHECK = 8
 N_STREAM = 2048       # further noisy reads for the steady-state throughput
+DP_VERSION = "v1-15pct-2028"
+N_DP = 256            # reads at pbcorrect's default error rate (-e 0.15)
+DP_ERROR = 0.15
+N_DP_CHECK = 8        # reads that reached the DP fallback, held against the host
+MSA_CHECK_LF = 32     # recorded lf_extract calls replayed against the plain version
+MSA_CHECK_FILL = 16   # recorded banded_fill calls replayed against the plain version
+MSA_CHECK_PILEUPS = 16  # DP fallbacks run through both routes of the MSA
 BATCH_READS = 64      # reads per stream batch (pbcorrect --batch-reads)
 WALK_BATCH = 512
 QUEUE_TASKS = 1024
@@ -96,9 +123,15 @@ KERNEL_INFO = {
                    "longreadselfcorrect_tpu/ops/walk.py:997"),
     "walk_queue": ("longreadselfcorrect_tpu_torch/csrc/walk.cu",
                    "longreadselfcorrect_tpu/ops/walk.py:1802"),
+    "lf_extract": ("longreadselfcorrect_tpu_torch/csrc/msa.cu",
+                   "longreadselfcorrect_tpu/ops/msa_kernels.py:36"),
+    "banded_fill": ("longreadselfcorrect_tpu_torch/csrc/msa.cu",
+                    "longreadselfcorrect_tpu/ops/msa_kernels.py:89"),
 }
 SEED_KERNELS = ("kmer_table_full", "attributes", "scan_automaton", "estimate_best",
                 "remove_hitchhiking")
+WALK_KERNELS = ("wcache_level_up", "walk_prep", "walk_steps", "walk_queue")
+MSA_KERNELS = ("lf_extract", "banded_fill")
 
 
 class PhaseError(RuntimeError):
@@ -167,6 +200,31 @@ def noisify(rng, s, e):
     return "".join(out)
 
 
+def make_genome(rng) -> str:
+    """The bench genome: the first draw of rng seed 2026."""
+    return "".join(rng.choice(list("ACGT"), size=GENOME_LEN))
+
+
+def ensure_dp_reads() -> str:
+    """The DP read set: 1.5 kb reads of the same genome at 15% error (rng
+    seed 2028), under a stamp of its own, so that neither the corpus nor
+    its index is rebuilt."""
+    import numpy as np
+
+    stamp = os.path.join(CACHE, DP_VERSION + ".ok")
+    path = os.path.join(CACHE, "dp.fa")
+    if os.path.exists(stamp):
+        return path
+    genome = make_genome(np.random.default_rng(2026))
+    rng = np.random.default_rng(2028)
+    with open(path, "w") as f:
+        for i, p in enumerate(rng.integers(0, GENOME_LEN - 1600, size=N_DP)):
+            f.write(f">d{i}\n{noisify(rng, genome[p : p + 1500], DP_ERROR)}\n")
+    with open(stamp, "w") as f:
+        f.write("ok")
+    return path
+
+
 def ensure_corpus():
     import numpy as np
 
@@ -180,7 +238,7 @@ def ensure_corpus():
     if os.path.exists(stamp):
         return corpus, noisy, stream
     rng = np.random.default_rng(2026)
-    genome = "".join(rng.choice(list("ACGT"), size=GENOME_LEN))
+    genome = make_genome(rng)
     n_reads = GENOME_LEN * COVERAGE // READ_LEN
     with open(corpus, "w") as f:
         for i in range(n_reads):
@@ -224,12 +282,17 @@ def phase_data():
     check(len(items) == N_NOISY, f"data: {len(items)} noisy reads")
     extra = [(rec.id, rec.seq) for rec in fasta.read_seqs(stream)]
     check(len(extra) == N_STREAM, f"data: {len(extra)} further noisy reads")
+    t0 = time.perf_counter()
+    dp = [(rec.id, rec.seq) for rec in fasta.read_seqs(ensure_dp_reads())]
+    t_dp = time.perf_counter() - t0
+    check(len(dp) == N_DP, f"data: {len(dp)} reads at {DP_ERROR:.0%} error")
     dev_mb = sum(t.numel() * t.element_size()
                  for fm in (dix.bwt, dix.rbwt) for t in (fm.blocks, fm.ckpt, fm.C)) / 1e6
     say(f"data: genome {GENOME_LEN} bp, {GENOME_LEN * COVERAGE // READ_LEN} reads, "
         f"{hix.bwt.n} symbols per strand, device index {dev_mb:.1f} MB, "
         f"{len(items)} noisy reads (max {max(len(s) for _, s in items)} bp) and "
-        f"{len(extra)} further ones; "
+        f"{len(extra)} further ones; {len(dp)} reads at {DP_ERROR:.0%} error "
+        f"(max {max(len(s) for _, s in dp)} bp, in {t_dp:.1f}s); "
         f"corpus {t_corpus:.1f}s, fmbuild {t_index:.1f}s, pack+upload {t_pack:.1f}s")
     import torch
 
@@ -248,7 +311,7 @@ def phase_data():
         f"{t8:.3f}s; ck={ck} {tuple(wx.wcache.shape)} = "
         f"{wx.wcache.numel() * 4 / 1e6:.1f} MB by {ck - walk.CACHE_K} level-ups on the "
         f"card (+ saving wcache{ck}.npy) in {t12:.3f}s")
-    return hix, dix, items, extra
+    return hix, dix, items, extra, dp
 
 
 # ---------------------------------------------------------------------------
@@ -681,7 +744,7 @@ class ConfigChecks:
         self.t += time.perf_counter() - t0
         return rk
 
-    def main_path(self, tasks):
+    def main_path(self, tasks, phase="walks"):
         """Route the tasks as _submit_tasks does, run each queue bank on the
         card for its flagged lanes, and check every config reached."""
         from dataclasses import replace
@@ -729,7 +792,7 @@ class ConfigChecks:
             if replace(cfg, G=0) not in self.steps:
                 self.cover(cfg, f"ladder KMAX={cfg.KMAX} MAXLEN={cfg.MAXLEN} "
                                 f"SLAB={cfg.SLAB} (pool tasks)")
-        self.report("walks")
+        self.report(phase)
 
     def cover(self, cfg, label="main path only"):
         """Check cfg (G = 0: at most STEP_CHECK_TASKS lanes) on pool tasks
@@ -806,11 +869,15 @@ def stream_line(corrector, results, dt) -> str:
     pt, st = corrector.phase_times, corrector.stats
     total = st["prefetch_hit"] + st["prefetch_miss"] + st["host_fallback"]
     n = len(results)
+    t_dp = sum(r.timer_dp for r in results)
     return (f"{n} reads in {dt:.3f}s = {n / dt:.4f} reads/s; split seed "
             f"{pt['seed']:.3f}s walks {pt['walks']:.3f}s replay {pt['replay']:.3f}s; "
             f"gaps {st['gaps']}; gap lookups {total}: {json.dumps(st)}; "
             f"merged {sum(r.merge for r in results)}/{n}, fm_num "
-            f"{sum(r.fm_num for r in results)}, dp_num {sum(r.dp_num for r in results)}")
+            f"{sum(r.fm_num for r in results)}, DP fallbacks "
+            f"{sum(reached_dp(r) for r in results)} (dp_num "
+            f"{sum(r.dp_num for r in results)}) taking {t_dp:.3f}s = "
+            f"{t_dp / pt['replay'] if pt['replay'] else 0:.1%} of the replay")
 
 
 def phase_correct(hix, dix, params, items, checks):
@@ -853,7 +920,8 @@ def phase_correct(hix, dix, params, items, checks):
         f"host SelfCorrector {N_HOST_CHECK / t_host:.4f} reads/s on the first "
         f"{N_HOST_CHECK}, all equal; launches {json.dumps(launches)}; walk_steps "
         f"configs {json.dumps([dict(L=k.L, MAXLEN=k.MAXLEN, KMAX=k.KMAX, SLAB=k.SLAB, SB=k.SB, launches=v) for k, v in step_cfgs.items()])}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    # this path's kernels; the MSA kernels are read on the DP path (phase 8)
+    missing = [k for k in SEED_KERNELS + WALK_KERNELS if launches[k] <= 0]
     check(not missing, f"correct: kernels {missing} were not launched on the main path")
     new = [k for k in step_cfgs if k not in checks.steps]
     for k in new:
@@ -861,6 +929,241 @@ def phase_correct(hix, dix, params, items, checks):
     if new:
         checks.report("correct")
     return launches, wx
+
+
+# ---------------------------------------------------------------------------
+# phase 8: pbcorrect on the 15%-error reads, the DP fallback on the card
+# ---------------------------------------------------------------------------
+
+@contextmanager
+def recording(mod, name, log):
+    """Log the arguments of every call of mod.<name> while active."""
+    orig = getattr(mod, name)
+
+    def rec(*args, **kw):
+        log.append(args)
+        return orig(*args, **kw)
+
+    setattr(mod, name, rec)
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+
+
+def reached_dp(r) -> int:
+    """The gaps of a read that went to the MSA/DP fallback (every gap that
+    no FM walk closed; dp_num counts those whose MSA succeeded)."""
+    return r.total_walk_num - r.fm_num
+
+
+def phase_dp(hix, wx, params, items, checks):
+    """process_stream over the reads at 15% error, launch counts reset just
+    before; the gap tasks' configs checked first as phase 5 checks them.
+    Returns (launches, calls recorded on the path)."""
+    import torch
+
+    from longreadselfcorrect_tpu_torch.core import msa
+    from longreadselfcorrect_tpu_torch.core.batch_correct import BatchedSelfCorrector
+    from longreadselfcorrect_tpu_torch.core.correct import SelfCorrector
+    from longreadselfcorrect_tpu_torch.ops import cuda, msa_kernels, walk
+
+    corrector = BatchedSelfCorrector(hix, wx, params)
+    per_read = [(rid, seq, seeds) for _, chunk, sl in corrector._device_seed_scan(items)
+                for (rid, seq), seeds in zip(chunk, sl)]
+    tasks, _ = corrector._enumerate_walks(per_read)
+    checks.pool = checks.pool + [t for t in tasks if t.init_k >= corrector.cfg.CK]
+    n_steps, n_queue = len(checks.steps), len(checks.queue)
+    checks.main_path(tasks, "dp")
+    say(f"dp: {len(items)} reads enumerate {len(tasks)} gap tasks; "
+        f"{len(checks.steps) - n_steps} further walk_steps and "
+        f"{len(checks.queue) - n_queue} further walk_queue configs checked")
+
+    calls = {"lf": [], "fill": [], "msa": []}
+    corrector = BatchedSelfCorrector(hix, wx, params)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    walk.STEP_CONFIGS.clear()
+    t0 = time.perf_counter()
+    with recording(msa_kernels, "lf_extract", calls["lf"]), \
+            recording(msa_kernels, "banded_fill", calls["fill"]), \
+            recording(msa, "build_multiple_alignment", calls["msa"]):
+        results = run_stream(corrector, items)
+    dt = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    step_cfgs = dict(walk.STEP_CONFIGS)
+    check(len(results) == len(items), f"dp: {len(results)} results")
+    attempts = sum(reached_dp(r) for r in results)
+    dp_num = sum(r.dp_num for r in results)
+    dp_reads = [(it, r) for it, r in zip(items, results) if reached_dp(r) > 0]
+    host = SelfCorrector(hix, params)
+    t1 = time.perf_counter()
+    for (rid, seq), res in dp_reads[:N_DP_CHECK]:
+        want = host.process(rid, seq)
+        for name in COUNTERS:
+            check(getattr(res, name) == getattr(want, name),
+                  f"dp: read {rid} {name} differs from the host SelfCorrector")
+    t_host = time.perf_counter() - t1
+    say(f"dp: {stream_line(corrector, results, dt)}; {len(dp_reads)} reads reached "
+        f"the MSA, {attempts - dp_num} MSA attempts failed; "
+        f"{len(calls['lf'])} lf_extract and {len(calls['fill'])} banded_fill calls; "
+        f"host SelfCorrector on the first {min(N_DP_CHECK, len(dp_reads))} DP reads "
+        f"{t_host:.1f}s, all equal; launches {json.dumps(launches)}")
+    check(bool(dp_reads), "dp: no read reached the DP fallback")
+    missing = [k for k in MSA_KERNELS if launches[k] <= 0]
+    check(not missing, f"dp: kernels {missing} were not launched on the DP path")
+    new = [k for k in step_cfgs if k not in checks.steps]
+    for k in new:
+        checks.cover(k)
+    if new:
+        checks.report("dp")
+    return launches, calls
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the MSA kernels on the DP path's own calls; the gates
+# ---------------------------------------------------------------------------
+
+def spread(log, n):
+    """Up to n entries of log, evenly spaced, the first and last included."""
+    if len(log) <= n:
+        return list(log)
+    return [log[round(i * (len(log) - 1) / (n - 1))] for i in range(n)]
+
+
+def wall_ms(fn, reps=3):
+    """Median host wall of fn, the device drained before and after."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def crossover(points):
+    """The smallest size from which the card wins at every size measured
+    (None if the host wins at the largest).  points: (size, host, card)."""
+    pts = sorted(points)
+    for i, (size, _, _) in enumerate(pts):
+        if all(c < h for _, h, c in pts[i:]):
+            return size
+    return None
+
+
+def phase_msa(hix, dix, calls):
+    """Each MSA kernel against its plain version on the card, exactly, on
+    the calls the DP path made; kernel and plain times on the median-sized
+    call with its bound; the host route (numpy) against the card route
+    (with its copies) per call, which decides the gates of core/msa.py;
+    both routes of build_multiple_alignment on DP fallbacks of the path.
+    Returns {kernel: record}."""
+    import numpy as np
+    import torch
+
+    from longreadselfcorrect_tpu_torch.core import msa
+    from longreadselfcorrect_tpu_torch.core.overlapper import fill_cells_batched
+    from longreadselfcorrect_tpu_torch.ops import msa_kernels, rank
+
+    host_fm = {id(dix.bwt): hix.bwt, id(dix.rbwt): hix.rbwt}
+    rec = {}
+    t_phase = time.perf_counter()
+
+    # lf_extract: (fm, roots, steps)
+    lf = [(fm, np.asarray(roots), steps) for fm, roots, steps in calls["lf"]]
+    check(bool(lf), "msa: the DP path made no lf_extract call")
+    lf.sort(key=lambda c: len(c[1]) * c[2])
+    err, gate_pts = 0, []
+    for fm, roots, steps in spread(lf, MSA_CHECK_LF):
+        r = torch.from_numpy(roots.astype(np.int32)).cuda()
+        err = max(err, max_abs_err(msa_kernels.lf_extract_tensors(fm, r, steps),
+                                   msa_kernels.lf_extract_plain(fm, r, steps)))
+        hfm = host_fm[id(fm)]
+        gate_pts.append((len(roots) * steps,
+                         wall_ms(lambda: msa._lf_extract(hfm, roots, steps)),
+                         wall_ms(lambda: msa_kernels.lf_extract(fm, roots, steps))))
+    fm, roots, steps = lf[len(lf) // 2]
+    r = torch.from_numpy(roots.astype(np.int32)).cuda()
+    with rank.RowTracker(dix) as rt:
+        (_, lens), plain_ms = time_once(lambda: msa_kernels.lf_extract_plain(fm, r, steps))
+    N = len(roots)
+    # each index row read (symbols + checkpoint row), the roots in, the
+    # symbols and lens out; ops: one byte compare per symbol of a step's row
+    b_ms, b_by = bound(rt.rows * 148 + 4 * N + N * steps + 4 * N,
+                       int(lens.sum()) * 128)
+    rec["lf_extract"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: msa_kernels.lf_extract_tensors(fm, r, steps)),
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        shape=f"N={N} steps={steps}, {int(lens.sum())} LF steps, {rt.rows} index rows",
+        gate=crossover(gate_pts), points=gate_pts)
+
+    # banded_fill: (queries, targets, starts1, starts2, band_width, scores, device)
+    fills = sorted(calls["fill"], key=lambda c: len(c[0]) * max(map(len, c[0])))
+    check(bool(fills), "msa: the DP path made no banded_fill call")
+    err, gate_pts = 0, []
+    for qs, ts, s1, s2, band, scores, device in spread(fills, MSA_CHECK_FILL):
+        args = msa_kernels.encode_pairs(qs, ts, s1, s2, band)
+        dev = [torch.from_numpy(a).cuda() for a in args[:4]]
+        err = max(err, max_abs_err(msa_kernels.banded_fill_tensors(*dev, args[4], scores),
+                                   msa_kernels.banded_fill_plain(*dev, args[4], scores)))
+        gate_pts.append((len(qs),
+                         wall_ms(lambda: fill_cells_batched(qs, ts, s1, s2, band, *scores)),
+                         wall_ms(lambda: msa_kernels.banded_fill(qs, ts, s1, s2, band,
+                                                                 scores, device))))
+    qs, ts, s1, s2, band, scores, _ = fills[len(fills) // 2]
+    q, t, tl, org, bw = msa_kernels.encode_pairs(qs, ts, s1, s2, band)
+    dev = [torch.from_numpy(a).cuda() for a in (q, t, tl, org)]
+    _, plain_ms = time_once(lambda: msa_kernels.banded_fill_plain(*dev, bw, scores))
+    N, Q = q.shape
+    b_ms, b_by = bound(q.size + t.size + 8 * N + 4 * N * (Q + 1) * bw, 12 * N * Q * bw)
+    rec["banded_fill"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: msa_kernels.banded_fill_tensors(*dev, bw, scores)),
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        shape=f"N={N} Q={Q} T={t.shape[1]} bw={bw}", gate=crossover(gate_pts),
+        points=gate_pts)
+
+    # both routes of the MSA on DP fallbacks of the path
+    routes = []
+    for args in spread(calls["msa"], MSA_CHECK_PILEUPS):
+        args = args[:7]   # query .. ix
+        t0 = time.perf_counter()
+        ma_h = msa.build_multiple_alignment(*args)
+        t_h = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ma_d = msa.build_multiple_alignment(*args, dev=dix)
+        torch.cuda.synchronize()
+        t_d = time.perf_counter() - t0
+        check(ma_h.num_rows() == ma_d.num_rows()
+              and ma_h.calculate_base_consensus(15, -1) == ma_d.calculate_base_consensus(15, -1),
+              f"msa: the card's route differs from the host's on a {len(args[0])} bp query")
+        routes.append((len(args[0]), ma_h.num_rows(), round(t_h * 1e3, 2), round(t_d * 1e3, 2)))
+    lf_sizes = [len(roots) * steps for _, roots, steps in lf]
+    fill_sizes = [len(c[0]) for c in fills]
+    say("msa: " + json.dumps([
+        {"name": k, "max_abs_err": r["max_abs_err"], "ms": round(r["ms"], 4),
+         "plain_ms": round(r["plain_ms"], 3), "bound_ms": round(r["bound_ms"], 5),
+         "bound_by": r["bound_by"], "shape": r["shape"]} for k, r in rec.items()])
+        + f"; calls: lf_extract {len(lf)} (rows x steps min/median/max "
+        f"{min(lf_sizes)}/{statistics.median(lf_sizes)}/{max(lf_sizes)}), banded_fill "
+        f"{len(fills)} (lanes {min(fill_sizes)}/{statistics.median(fill_sizes)}/"
+        f"{max(fill_sizes)})")
+    for k, gate_now in (("lf_extract", msa.LF_DEVICE_MIN), ("banded_fill", msa.FILL_DEVICE_MIN)):
+        r = rec[k]
+        won = sum(c < h for _, h, c in r["points"])
+        say(f"msa: gate {k}: host ms vs card ms (copies included) per size "
+            f"{json.dumps([(s, round(h, 3), round(c, 3)) for s, h, c in r['points']])}; "
+            f"the card wins {won} of {len(r['points'])}; crossover {r['gate']}; "
+            f"gate in core/msa.py {gate_now}")
+    say(f"msa: build_multiple_alignment host vs card (query bp, rows, host ms, card ms): "
+        f"{json.dumps(routes)}; consensus equal; in {time.perf_counter() - t_phase:.1f}s")
+    bad = [k for k, r in rec.items() if r["max_abs_err"] != 0]
+    check(not bad, f"msa: {bad} differ from their plain versions")
+    return rec
 
 
 def busy_us(spans, a, b) -> float:
@@ -874,10 +1177,10 @@ def busy_us(spans, a, b) -> float:
     return total
 
 
-def phase_trace(hix, wx, params, items):
-    """One pass over the noisy reads under torch.profiler: the device's
-    busy share of the pass and of each corrector phase, and the device
-    time of each kernel."""
+def phase_trace(hix, wx, params, items, label="trace", kernels=()):
+    """One pass over items under torch.profiler: the device's busy share
+    of the pass and of each corrector phase, the device time of each
+    kernel, and the device ms and launches of each of `kernels`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -902,7 +1205,7 @@ def phase_trace(hix, wx, params, items):
             ranges.setdefault(e.name[len("pbcorrect."):], []).append(
                 (e.time_range.start, e.time_range.end))
     if not dev:
-        say("trace: the profiler recorded no device activity: busy share not measured")
+        say(f"{label}: the profiler recorded no device activity: busy share not measured")
         return
     out = {}
     for name, rs in ranges.items():
@@ -914,23 +1217,41 @@ def phase_trace(hix, wx, params, items):
     for s, e, n in dev:
         per[n] = per.get(n, 0.0) + (e - s)
     top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
-    say(f"trace: {len(items)} reads, device activity per phase "
+    chosen = {}
+    for k in kernels:
+        hits = [(e - s) for s, e, n in dev if f"{k}_kernel" in n]
+        chosen[k] = dict(ms=round(sum(hits) / 1e3, 3), launches=len(hits))
+    say(f"{label}: {len(items)} reads, device activity per phase "
         f"(host wall, device busy = union of kernels and copies): {json.dumps(out)}; "
         f"device ms by name: "
-        f"{json.dumps({n[:60]: round(t / 1e3, 3) for n, t in top})}")
+        f"{json.dumps({n[:60]: round(t / 1e3, 3) for n, t in top})}"
+        + (f"; {json.dumps(chosen)}" if kernels else ""))
 
 
 def phase_throughput(hix, wx, params, extra):
     """Steady-state throughput: the tables already built, process_stream
-    over the further noisy reads."""
+    over the further noisy reads, with the DP fallback's LF extraction and
+    fills in numpy (msa_dev None, as before they were ported) and on the
+    card, in turns host, card, card, host; the four outputs equal."""
     from longreadselfcorrect_tpu_torch.core.batch_correct import BatchedSelfCorrector
 
-    corrector = BatchedSelfCorrector(hix, wx, params)
-    t0 = time.perf_counter()
-    results = run_stream(corrector, extra)
-    dt = time.perf_counter() - t0
-    check(len(results) == len(extra), f"throughput: {len(results)} results")
-    say(f"throughput: tables warm, {stream_line(corrector, results, dt)}")
+    first = None
+    for route in ("host", "card", "card", "host"):
+        corrector = BatchedSelfCorrector(hix, wx, params)
+        if route == "host":
+            corrector.msa_dev = None
+        t0 = time.perf_counter()
+        results = run_stream(corrector, extra)
+        dt = time.perf_counter() - t0
+        check(len(results) == len(extra), f"throughput: {len(results)} results")
+        if first is None:
+            first = results
+        for a, b in zip(first, results):
+            for name in COUNTERS:
+                check(getattr(a, name) == getattr(b, name),
+                      f"throughput: read {a.read_id} {name} differs between DP routes")
+        say(f"throughput: DP route {route}, tables warm, "
+            f"{stream_line(corrector, results, dt)}")
 
 
 def main() -> int:
@@ -939,7 +1260,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     name, _ = phase_device()
     phase_build()
-    hix, dix, items, extra = phase_data()
+    hix, dix, items, extra, dp = phase_data()
 
     from longreadselfcorrect_tpu_torch.core.batch_correct import BatchedSelfCorrector
     from longreadselfcorrect_tpu_torch.core.correct import CorrectionParams
@@ -951,15 +1272,22 @@ def main() -> int:
     rec.update(walks)
     phase_seeds(corrector, hix, items)
     launches, wx = phase_correct(hix, dix, params, items, checks)
+    dp_launches, calls = phase_dp(hix, wx, params, dp, checks)
+    rec.update(phase_msa(hix, dix, calls))
     t0 = time.perf_counter()
     phase_trace(hix, wx, params, items)
     say(f"trace: in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_trace(hix, wx, params, dp, "trace-dp", MSA_KERNELS)
+    say(f"trace-dp: in {time.perf_counter() - t0:.1f}s")
     phase_throughput(hix, wx, params, extra)
     rec["walk_steps"]["max_abs_err"] = max([rec["walk_steps_one"]["err"],
                                             rec["walk_steps_all"]["err"]]
                                            + [r["err"] for r in checks.steps.values()])
     rec["walk_queue"]["max_abs_err"] = max([rec["walk_queue"]["err"]]
                                            + [r["err"] for r in checks.queue.values()])
+    for k in MSA_KERNELS:
+        launches[k] = dp_launches[k]
 
     kernels = []
     for k, (source, replaces) in KERNEL_INFO.items():

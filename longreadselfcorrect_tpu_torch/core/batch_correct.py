@@ -10,7 +10,8 @@ results (the JAX package's core/batch_correct.py).  The replay checks each
 gap's inputs against the optimistic prefetch: a gap it did not prefetch
 goes to the next device round, and after the last round, like a flagged
 or oversized gap, to the host engine; so the outputs are SelfCorrector's.
-The MSA/DP fallback runs on the host.
+The MSA/DP fallback extracts its candidates and fills their DP bands on
+the device; the backtrack, the pileup and the consensus stay on the host.
 """
 from __future__ import annotations
 
@@ -66,6 +67,9 @@ class BatchedSelfCorrector(SelfCorrector):
         self.cfg_deep = replace(self.cfg_big, G=64, KMAX=52)
         self.cfg_dense = replace(self.cfg_huge, SLAB=False, G=32)
         self._prefetch: dict = {}
+        # the DP/MSA fallback runs its LF extraction and banded DP fills on
+        # the device (core/msa.py dev= route -> ops/msa_kernels)
+        self.msa_dev = self.dix
         self._misses = None
         self._read_incomplete = False
         self.stats = {"prefetch_hit": 0, "prefetch_miss": 0, "host_fallback": 0,

@@ -276,7 +276,7 @@ class SelfCorrector:
         min_call_coverage = int(total_max * 0.4) if total_max > 50 else 15
         ma = msa.build_multiple_alignment(
             query, ek, ek, len(query) // 10, identity, self.params.pb_coverage,
-            self.ix,
+            self.ix, dev=getattr(self, "msa_dev", None),
         )
         if ma.num_rows() <= 3:
             return False, ""

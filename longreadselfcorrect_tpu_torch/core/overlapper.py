@@ -107,11 +107,9 @@ def fill_cells_batched(
 
     One column loop serves every lane ([N, bw] ops per column instead of a
     Python loop per candidate), cell-for-cell identical to fill_cells.
-    This is the production fill for MSA pileups: the device kernel
-    (ops/msa_kernels.banded_fill) computes the same cells but has to ship
-    the full [N, cols, bw] matrix back for the host backtrack, and that
-    transfer alone (~20 MB per pileup) costs more than the whole batched
-    host fill.
+    This is the host route of the MSA pileups (core/msa.retrieve_matches
+    without a device index); with one, ops/msa_kernels.banded_fill
+    computes the same cells on the device.
     Returns cells [N, max_cols, bw]; lane n is valid for i <= len(s1s[n]).
     """
     N = len(s1s)

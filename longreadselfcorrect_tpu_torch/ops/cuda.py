@@ -6,7 +6,8 @@ at first use, under ``build/torch_kernels/<hash of all sources>/`` at the
 repository root, so an edit to any source (``rank.cuh`` included) rebuilds.
 ``build()`` starts one ``nvcc`` per source, all at once.
 
-Each wrapper in ``ops.scan`` / ``ops.seedscan`` / ``ops.walk`` adds one to
+Each wrapper in ``ops.scan`` / ``ops.seedscan`` / ``ops.walk`` /
+``ops.msa_kernels`` adds one to
 its entry of ``LAUNCHES`` where it launches its kernel, and nowhere else.
 """
 from __future__ import annotations
@@ -27,7 +28,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
 # library -> its source; the kernels each library holds
 SOURCES = {"kmer_table": "kmer_table.cu", "seedscan": "seedscan.cu",
-           "walk": "walk.cu"}
+           "walk": "walk.cu", "msa": "msa.cu"}
 KERNELS = {
     "kmer_table_full": "kmer_table",
     "attributes": "seedscan",
@@ -38,6 +39,8 @@ KERNELS = {
     "walk_prep": "walk",
     "walk_steps": "walk",
     "walk_queue": "walk",
+    "lf_extract": "msa",
+    "banded_fill": "msa",
 }
 
 # Every float in the seed phase feeds a compare that must equal the JAX f32
@@ -120,6 +123,8 @@ def build(libs=None) -> dict[str, str]:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# every C entry's arguments, the stream (last) included: an argument
+# beyond the list would pass as a 32-bit int
 _SIGNATURES = {
     "lrsc_kmer_table_full": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                              _P, _P, _P],
@@ -133,6 +138,8 @@ _SIGNATURES = {
     "lrsc_walk_prep": [_P, _P, _P],
     "lrsc_walk_steps": [_P, _P, _P],
     "lrsc_walk_queue": [_P, _P, _P],
+    "lrsc_lf_extract": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P],
+    "lrsc_banded_fill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 

@@ -56,7 +56,8 @@ def test_port_imports_no_jax_and_cuda_paths_raise(tmp_path):
     assert res["bad"] == [], res["bad"]
     assert res["n"] >= 20, res["mods"]   # every module of the package was imported
     for m in ("cli", "ops.cuda", "ops.scan", "ops.seedscan", "ops.walk",
-              "core.batch_correct", "core.extend", "index.pack", "index.fmindex"):
+              "ops.msa_kernels", "core.msa", "core.batch_correct", "core.extend",
+              "index.pack", "index.fmindex"):
         assert f"longreadselfcorrect_tpu_torch.{m}" in res["mods"]
     if not res["cuda"]:
         assert set(res["raised"]) == {"cli", "fmindex", "chip_smoke"}, res["raised"]
