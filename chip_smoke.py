@@ -7,7 +7,7 @@ Phases, one line each on stdout (a failing phase raises and the script
 exits non-zero without the final result line):
 
 1. device   the card's name and power limit (nvidia-smi); no CUDA -> fail
-2. build    the eleven CUDA kernels from longreadselfcorrect_tpu_torch/csrc
+2. build    the fifteen CUDA kernels from longreadselfcorrect_tpu_torch/csrc
             with nvcc, one process per source, all at once
 3. data     the bench corpus recipe: a 4 Mb random genome (seed 2026), 30x
             of 2 kb reads (60,000 reads, ~120M symbols per strand) indexed
@@ -31,7 +31,17 @@ exits non-zero without the final result line):
             case
 6. seeds    the port's seed phase on all 256 noisy reads on the card, held
             field for field against the host search_seeds on 16 of them
-7. correct  pbcorrect end to end, launch counts reset just before: the
+7. tables   the seed phase's two other table routes, launch counts reset
+            just before: the plane route (the index as bit-plane rows, then
+            the seed phase with kmer_table_planes, chain seeded from the
+            walk's 12-mer table) on all 256 reads and the wire route
+            (_device_seed_tables, then the host search_seeds on those
+            tables) on 16, both held against phase 6's seeds; the pool
+            probe (kmer_freq_scan at pbcorrect's pool, kmer_freq_single at
+            the scan k); then each of the four kernels against its plain
+            version on every chunk and on both BWTs, exactly, and against
+            kmer_table_full on the rows they share; times and bounds
+8. correct  pbcorrect end to end, launch counts reset just before: the
             walk's interval tables built anew (as on a first run over a
             pack), then BatchedSelfCorrector.process_stream over all 256
             noisy reads; the first 8 results held against the host
@@ -39,25 +49,25 @@ exits non-zero without the final result line):
             seed/walks/replay split, the gaps, prefetch and host-fallback
             counters, the launches, and the configs walk_steps ran at (a
             config phase 5 did not check is checked now)
-8. dp       the walk configs of the 15%-error reads' gap tasks checked as in
+9. dp       the walk configs of the 15%-error reads' gap tasks checked as in
             phase 5; then process_stream over those reads, launch counts
             reset just before, the MSA kernels' calls recorded: reads/s, the
             split, the DP fallbacks (reached, succeeded, failed) and their
             seconds as a share of the replay, the launches (lf_extract and
             banded_fill must have run); the first 8 reads that reached the
             DP fallback held against the host SelfCorrector
-9. msa      lf_extract and banded_fill against their plain versions on the
+10. msa     lf_extract and banded_fill against their plain versions on the
             card, exactly, on calls the DP path made; kernel and plain
             times on the median call, with the bound; per call the host
             route (numpy) against the card route (copies included): the
             crossover that sets the gates of core/msa.py; both routes of
             build_multiple_alignment on DP fallbacks of the path, consensus
             equal
-10. trace   one more pass over the 256 noisy reads under torch.profiler:
+11. trace   one more pass over the 256 noisy reads under torch.profiler:
             the device's busy share of each corrector phase, device ms by
             kernel; then one pass over the 15%-error reads (trace-dp), with
             the MSA kernels' device ms
-11. throughput  the stream over the 2048 further reads, tables warm, four
+12. throughput  the stream over the 2048 further reads, tables warm, four
             times: the DP fallback's loops in numpy, on the card, on the
             card, in numpy; the outputs equal
 
@@ -127,11 +137,20 @@ KERNEL_INFO = {
                    "longreadselfcorrect_tpu/ops/msa_kernels.py:36"),
     "banded_fill": ("longreadselfcorrect_tpu_torch/csrc/msa.cu",
                     "longreadselfcorrect_tpu/ops/msa_kernels.py:89"),
+    "kmer_freq_scan": ("longreadselfcorrect_tpu_torch/csrc/kmer_table.cu",
+                       "longreadselfcorrect_tpu/ops/scan.py:32"),
+    "kmer_table_wire": ("longreadselfcorrect_tpu_torch/csrc/kmer_table.cu",
+                        "longreadselfcorrect_tpu/ops/scan.py:143"),
+    "plane_rows": ("longreadselfcorrect_tpu_torch/csrc/planes.cu",
+                   "longreadselfcorrect_tpu/ops/scan.py:212"),
+    "kmer_table_planes": ("longreadselfcorrect_tpu_torch/csrc/planes.cu",
+                          "longreadselfcorrect_tpu/ops/scan.py:276"),
 }
 SEED_KERNELS = ("kmer_table_full", "attributes", "scan_automaton", "estimate_best",
                 "remove_hitchhiking")
 WALK_KERNELS = ("wcache_level_up", "walk_prep", "walk_steps", "walk_queue")
 MSA_KERNELS = ("lf_extract", "banded_fill")
+TABLE_KERNELS = ("kmer_freq_scan", "kmer_table_wire", "plane_rows", "kmer_table_planes")
 
 
 class PhaseError(RuntimeError):
@@ -349,21 +368,24 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def rank_traffic(ix, reads, lens, max_k):
+def rank_traffic(ix, reads, max_k, state=None, j0=1):
     """(distinct index rows, rank queries) the k-mer table of this chunk
-    needs: two queries per live step of each still-valid strand, as the
-    kernel issues them."""
+    needs from level j0 (state: the lanes' intervals there; level 1's by
+    default) to max_k: two queries per live step of each still-valid
+    strand, as the kernel issues them."""
     import torch
 
     from longreadselfcorrect_tpu_torch.ops import rank
 
     sym0 = reads.long()
     R, L = reads.shape
-    state = list(rank.init_bi(ix, sym0.clamp(0, 4)))
+    if state is None:
+        state = rank.init_bi(ix, sym0.clamp(0, 4))
+    state = list(state)
     seen = {id(fm): torch.zeros(fm.blocks.shape[0], dtype=torch.bool,
                                 device=reads.device) for fm in (ix.rbwt, ix.bwt)}
     queries = 0
-    for j in range(1, max_k):
+    for j in range(j0, max_k):
         nxt = torch.full((R, L), 5, dtype=torch.long, device=reads.device)
         nxt[:, : L - j] = sym0[:, j:]
         live = nxt < 5
@@ -393,36 +415,22 @@ def phase_kernels(corrector, items):
     and bounds on chunk 0.  Returns {kernel: record}."""
     import torch
 
-    from longreadselfcorrect_tpu_torch.core import alphabet as ab
-    from longreadselfcorrect_tpu_torch.core.batch_correct import CHUNK_READS, L_BUCKET
     from longreadselfcorrect_tpu_torch.ops import cuda, scan, seedscan
-
-    import numpy as np
 
     pp = corrector.probe_params
     ix = corrector.dix
     dev = ix.device
     max_k = pp.kmer_len_up_bound + 1
     K = max_k + 1
-    R = CHUNK_READS
-    L = max(len(s) for _, s in items)
-    L = L_BUCKET * ((L + L_BUCKET - 1) // L_BUCKET)
-    thr = torch.from_numpy(np.ascontiguousarray(
-        corrector.thresh.table[:, :K])).to(dev)
+    thr = corrector._seed_thr
     rep_thr = float(corrector.thresh.get(2, pp.scan_kmer_len))
     hh = float(pp.hh_ratio)
     bases = torch.arange(1, 5, dtype=torch.int8, device=dev)
     err = {k: 0 for k in SEED_KERNELS}
     rec = {}
     cuda.reset_launches()
-    for ci, base in enumerate(range(0, len(items), R)):
-        chunk = items[base : base + R]
-        mat = np.full((R, L), ab.PAD_RANK, np.int8)
-        lens_np = np.zeros(R, np.int32)
-        for i, (_, seq) in enumerate(chunk):
-            e = ab.encode(seq)
-            mat[i, : len(e)] = e
-            lens_np[i] = len(e)
+    for ci, (_, _, mat, lens_np) in enumerate(corrector._seed_chunks(items)):
+        R, L = mat.shape
         reads = torch.from_numpy(mat).to(dev)
         lens = torch.from_numpy(lens_np).to(dev)
         prefix = torch.zeros((R, L + 1, 4), dtype=torch.int32, device=dev)
@@ -477,7 +485,7 @@ def phase_kernels(corrector, items):
             continue
 
         # chunk 0: times, and the least time the card needs for the work
-        rows, queries = rank_traffic(ix, reads, lens, max_k)
+        rows, queries = rank_traffic(ix, reads, max_k)
         nseeds = int(n.sum())
         lane_steps = auto_stats["lane_steps"]
         walk_steps = best_stats["walk_steps"]
@@ -848,10 +856,166 @@ def phase_seeds(corrector, hix, items):
         f"{json.dumps(cuda.LAUNCHES)}; first {N_HOST_SEEDS} reads equal to the "
         f"host search_seeds")
     check(n_seeds > len(items), f"seeds: only {n_seeds} seeds")
+    return got
 
 
 # ---------------------------------------------------------------------------
-# phase 7: pbcorrect end to end
+# phase 7: the seed phase's two other table routes and their kernels
+# ---------------------------------------------------------------------------
+
+def phase_tables(corrector, hix, items, want):
+    """The plane route, the wire route and the pool probe, launch counts
+    reset just before and read just after; then each table kernel against
+    its plain version and against kmer_table_full.  want: phase 6's seeds
+    per read.  Returns ({kernel: record}, {kernel: launches})."""
+    import numpy as np
+    import torch
+
+    from longreadselfcorrect_tpu_torch.core import seeds
+    from longreadselfcorrect_tpu_torch.ops import cuda, scan
+
+    pp = corrector.probe_params
+    wx, ix, dev = corrector.wx, corrector.dix, corrector.device
+    max_k = pp.kmer_len_up_bound + 1
+    K, ck, pool = max_k + 1, wx.ck, tuple(pp.pool)
+    t_phase = time.perf_counter()
+    chunks = [(base, chunk, torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev))
+              for base, chunk, mat, lens in corrector._seed_chunks(items)]
+    want_sig = [[_sig(s) for s in ss] for ss in want]
+
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    # the plane route: the index as plane rows, then the seed phase on the
+    # plane table (the composition of tools/prof_seed.py:86-105)
+    t0 = time.perf_counter()
+    pix = scan.plane_index_of(hix, wx)
+    torch.cuda.synchronize()
+    t_rows = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    submitted = [(base, chunk, corrector._seed_records(
+        *scan.kmer_table_planes(pix, wx.wcache, reads, lens, max_k, ck), reads, lens))
+        for base, chunk, reads, lens in chunks]
+    plane = [[_sig(s) for s in ss] for _, _, sl in corrector._seed_collect(submitted)
+             for ss in sl]
+    t_plane = time.perf_counter() - t0
+    # the wire route: the tables on the host, then the host seed scan
+    t0 = time.perf_counter()
+    f, v, lens_all = corrector._device_seed_tables(items)
+    t_wire = time.perf_counter() - t0
+    wire = [[_sig(s) for s in seeds.search_seeds(
+        seq, hix, pp, corrector.thresh, freq_table=f[:, i, : lens_all[i]],
+        valid_table=v[:, i, : lens_all[i]])] for i, (_, seq) in enumerate(items[:N_HOST_SEEDS])]
+    # the pool probe
+    probe = [(scan.kmer_freq_scan(ix, reads, lens, pool),
+              scan.kmer_freq_single(ix, reads, lens, pp.scan_kmer_len))
+             for _, _, reads, lens in chunks]
+    torch.cuda.synchronize()
+    launches = {k: cuda.LAUNCHES[k] for k in TABLE_KERNELS}
+    check(plane == want_sig, "tables: the plane route's seeds differ from the device seed scan")
+    check(wire == want_sig[:N_HOST_SEEDS],
+          "tables: search_seeds on the wire tables differs from the device seed scan")
+    check(f.shape == (K, len(items), chunks[0][2].shape[1]) and f.dtype == np.int32
+          and v.dtype == bool, f"tables: wire tables {f.shape} {f.dtype} {v.dtype}")
+    missing = [k for k in TABLE_KERNELS if launches[k] <= 0]
+    check(not missing, f"tables: kernels {missing} were not launched on their routes")
+
+    # each kernel against its plain version, and against kmer_table_full
+    err = {k: 0 for k in TABLE_KERNELS}
+    for fm, pf in ((ix.rbwt, pix.fwd), (ix.bwt, pix.rev)):
+        err["plane_rows"] = max(err["plane_rows"], max_abs_err(
+            pf.prows, scan.build_plane_rows_plain(fm.blocks, fm.ckpt)))
+    cross = []
+    rec = {}
+    for ci, (_, _, reads, lens) in enumerate(chunks):
+        R, L = reads.shape
+        calls = {
+            "kmer_freq_scan": (lambda: scan.kmer_freq_scan(ix, reads, lens, pool),
+                               lambda: scan.kmer_freq_scan_plain(ix, reads, lens, pool)),
+            "kmer_table_wire": (lambda: scan.kmer_table_wire(ix, reads, lens, max_k),
+                                lambda: scan.kmer_table_wire_plain(ix, reads, lens, max_k)),
+            "kmer_table_planes": (
+                lambda: scan.kmer_table_planes(pix, wx.wcache, reads, lens, max_k, ck),
+                lambda: scan.kmer_table_planes_plain(pix, wx.wcache, reads, lens, max_k, ck)),
+        }
+        got = {k: kern() for k, (kern, _) in calls.items()}
+        for k, (_, plain) in calls.items():
+            err[k] = max(err[k], max_abs_err(got[k], plain()))
+        err["kmer_freq_scan"] = max(err["kmer_freq_scan"], max_abs_err(
+            probe[ci][0], got["kmer_freq_scan"]), max_abs_err(
+            probe[ci][1], scan.kmer_freq_scan_plain(ix, reads, lens, (pp.scan_kmer_len,))[0]))
+        full_f, full_v = scan.kmer_table_full(ix, reads, lens, max_k)
+        f16, vbits = got["kmer_table_wire"]
+        pf_, pv_ = got["kmer_table_planes"]
+        cross.append(dict(
+            pool_rows=torch.equal(got["kmer_freq_scan"], full_f[list(pool)]),
+            wire_freq=torch.equal(f16.int(), full_f.clamp(max=32767)),
+            wire_valid=bool(np.array_equal(scan.unpack_valid_bits(vbits.cpu().numpy(), K),
+                                           full_v.cpu().numpy())),
+            planes_rows=torch.equal(pf_[ck:], full_f[ck:]) and torch.equal(pv_[ck:], full_v[ck:]),
+            planes_below_ck=bool((pf_[:ck] == -1).all()) and not bool(pv_[:ck].any()),
+            clipped=int((full_f > 32767).sum())))
+        torch.cuda.synchronize()
+        if ci:
+            continue
+
+        # chunk 0: times, and the least time the card needs for the work
+        rows_pool, q_pool = rank_traffic(ix, reads, pool[-1])
+        rows_full, q_full = rank_traffic(ix, reads, max_k)
+        codes = scan.plane_codes(reads, ck)
+        st = wx.wcache[codes.long()]
+        rows_pl, q_pl = rank_traffic(ix, reads, max_k, tuple(st[..., i] for i in range(4)), ck)
+        n_codes = int(torch.unique(codes).numel())
+        io = R * L + 4 * R      # reads and lens in
+        work = {
+            # each touched index row (128 symbols + one checkpoint word)
+            # read once; ops: one byte compare per symbol of a query's row
+            "kmer_freq_scan": (io + 4 * len(pool) * R * L + rows_pool * 132, q_pool * 128),
+            "kmer_table_wire": (io + 2 * K * R * L + (K + 7) // 8 * R * L + rows_full * 132,
+                                q_full * 128),
+            # 68-byte plane rows, one 16-byte wcache entry per distinct code;
+            # ops: 8 word operations per plane word of a query
+            "kmer_table_planes": (io + 5 * K * R * L + rows_pl * 68 + n_codes * 16,
+                                  q_pl * 4 * 8),
+        }
+        for k, (kern, plain) in calls.items():
+            b_ms, b_by = bound(*work[k])
+            rec[k] = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+                      "bound_ms": b_ms, "bound_by": b_by}
+        shape = dict(R=R, L=L, K=K, ck=ck, pool=pool, chunks=len(chunks),
+                     rows=dict(pool=rows_pool, full=rows_full, planes=rows_pl),
+                     queries=dict(pool=q_pool, full=q_full, planes=q_pl),
+                     wcache_entries=n_codes)
+        del got
+    # plane_rows: one launch per strand, times and bound on the RBWT
+    fm = ix.rbwt
+    nb = fm.blocks.shape[0]
+    b_ms, b_by = bound(nb * (128 + 20 + 4 * scan.PLANE_ROW), nb * 128 * 3)
+    rec["plane_rows"] = {"ms": time_ms(lambda: scan.build_plane_rows(fm.blocks, fm.ckpt)),
+                         "plain_ms": time_ms(lambda: scan.build_plane_rows_plain(
+                             fm.blocks, fm.ckpt)),
+                         "bound_ms": b_ms, "bound_by": b_by}
+    shape["plane_blocks"] = nb
+    for k in TABLE_KERNELS:
+        rec[k]["max_abs_err"] = err[k]
+    say(f"tables: plane route {len(items)} reads, seeds equal to phase 6's, plane rows "
+        f"{t_rows:.3f}s then {t_plane:.3f}s; wire route {len(items)} reads' tables "
+        f"{f.shape} in {t_wire:.3f}s, search_seeds on the first {N_HOST_SEEDS} equal to "
+        f"phase 6's; launches {json.dumps(launches)}; cross-checks against "
+        f"kmer_table_full {json.dumps(cross)}; " + json.dumps([
+            {"name": k, "max_abs_err": r["max_abs_err"], "ms": round(r["ms"], 4),
+             "plain_ms": round(r["plain_ms"], 3), "bound_ms": round(r["bound_ms"], 5),
+             "bound_by": r["bound_by"]} for k, r in rec.items()])
+        + f" shape {json.dumps(shape)} in {time.perf_counter() - t_phase:.1f}s")
+    bad = [k for k in TABLE_KERNELS if err[k] != 0]
+    check(not bad, f"tables: {bad} differ from their plain versions")
+    off = [i for i, c in enumerate(cross) if not all(
+        c[x] for x in ("pool_rows", "wire_freq", "wire_valid", "planes_rows", "planes_below_ck"))]
+    check(not off, f"tables: chunks {off} differ from kmer_table_full on shared rows")
+    return rec, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: pbcorrect end to end
 # ---------------------------------------------------------------------------
 
 COUNTERS = ("merge", "corrected_strs", "total_reads_len", "corrected_len",
@@ -920,7 +1084,7 @@ def phase_correct(hix, dix, params, items, checks):
         f"host SelfCorrector {N_HOST_CHECK / t_host:.4f} reads/s on the first "
         f"{N_HOST_CHECK}, all equal; launches {json.dumps(launches)}; walk_steps "
         f"configs {json.dumps([dict(L=k.L, MAXLEN=k.MAXLEN, KMAX=k.KMAX, SLAB=k.SLAB, SB=k.SB, launches=v) for k, v in step_cfgs.items()])}")
-    # this path's kernels; the MSA kernels are read on the DP path (phase 8)
+    # this path's kernels; the MSA kernels are read on the DP path (phase 9)
     missing = [k for k in SEED_KERNELS + WALK_KERNELS if launches[k] <= 0]
     check(not missing, f"correct: kernels {missing} were not launched on the main path")
     new = [k for k in step_cfgs if k not in checks.steps]
@@ -932,7 +1096,7 @@ def phase_correct(hix, dix, params, items, checks):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: pbcorrect on the 15%-error reads, the DP fallback on the card
+# phase 9: pbcorrect on the 15%-error reads, the DP fallback on the card
 # ---------------------------------------------------------------------------
 
 @contextmanager
@@ -1021,7 +1185,7 @@ def phase_dp(hix, wx, params, items, checks):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the MSA kernels on the DP path's own calls; the gates
+# phase 10: the MSA kernels on the DP path's own calls; the gates
 # ---------------------------------------------------------------------------
 
 def spread(log, n):
@@ -1270,7 +1434,9 @@ def main() -> int:
     rec = phase_kernels(corrector, items)
     walks, checks = phase_walks(corrector, items)
     rec.update(walks)
-    phase_seeds(corrector, hix, items)
+    seeds6 = phase_seeds(corrector, hix, items)
+    tables, table_launches = phase_tables(corrector, hix, items, seeds6)
+    rec.update(tables)
     launches, wx = phase_correct(hix, dix, params, items, checks)
     dp_launches, calls = phase_dp(hix, wx, params, dp, checks)
     rec.update(phase_msa(hix, dix, calls))
@@ -1288,6 +1454,7 @@ def main() -> int:
                                            + [r["err"] for r in checks.queue.values()])
     for k in MSA_KERNELS:
         launches[k] = dp_launches[k]
+    launches.update(table_launches)
 
     kernels = []
     for k, (source, replaces) in KERNEL_INFO.items():

@@ -30,6 +30,8 @@ from ..ops import scan, seedscan, walk
 
 CHUNK_READS = 64   # reads per device seed-scan chunk
 L_BUCKET = 256     # chunk widths are multiples of this
+# depth of the wire tables (_seed_table_chunks); larger k is not tabled
+KTAB = 64
 QUEUE_BANK = 8192  # tasks per queue-engine bank
 MISS_ROUNDS = 6    # replay rounds; misses of the last go to the host engine
 MISS_FLUSH = 256   # misses that start a device round during a replay
@@ -51,6 +53,9 @@ class BatchedSelfCorrector(SelfCorrector):
                    else walk.WalkIndex.build(dev_ix, ix, ck=walk.walk_ck(ix.bwt.n)))
         self.dix = self.wx.ix
         self.device = self.dix.device
+        # the seed scan's dynamic-kmer thresholds, k = 0..kmer_len_up_bound+1
+        self._seed_thr = torch.from_numpy(np.ascontiguousarray(
+            self.thresh.table[:, : self.probe_params.kmer_len_up_bound + 2])).to(self.device)
         ck = self.wx.ck
         cfg = cfg or walk.WalkConfig(G=512, MAXLEN=768, QMAX=768, WSCAN=320)
         # the JAX engine's config ladder (core/batch_correct.py:95-122):
@@ -77,22 +82,13 @@ class BatchedSelfCorrector(SelfCorrector):
         self.phase_times = {"seed": 0.0, "walks": 0.0, "replay": 0.0}
 
     # ------------------------------------------------------------------
-    def _seed_submit(self, items):
-        """Launch the device seed scan of every 64-read chunk without
-        waiting for any of it."""
-        pp = self.probe_params
-        dev = self.device
-        max_k = pp.kmer_len_up_bound + 1
-        thr = torch.from_numpy(
-            np.ascontiguousarray(self.thresh.table[:, : max_k + 1])).to(dev)
-        rep_thr = float(self.thresh.get(2, pp.scan_kmer_len))
+    def _seed_chunks(self, items):
+        """The reads in CHUNK_READS-read chunks of one width (a multiple of
+        L_BUCKET): yields (base, chunk, reads int8 [R, L] padded with
+        PAD_RANK, lens int32 [R]) as numpy arrays."""
         R = CHUNK_READS
-        if not items:
-            return []
         L = max(len(seq) for _, seq in items)
         L = L_BUCKET * ((L + L_BUCKET - 1) // L_BUCKET)
-        bases = torch.arange(1, 5, dtype=torch.int8, device=dev)
-        submitted = []
         for base in range(0, len(items), R):
             chunk = items[base : base + R]
             mat = np.full((R, L), ab.PAD_RANK, np.int8)
@@ -101,29 +97,48 @@ class BatchedSelfCorrector(SelfCorrector):
                 e = ab.encode(seq)
                 mat[i, : len(e)] = e
                 lens[i] = len(e)
-            dmat = torch.from_numpy(mat).to(dev)
-            dlens = torch.from_numpy(lens).to(dev)
+            yield base, chunk, mat, lens
+
+    def _seed_submit(self, items):
+        """Launch the device seed scan of every 64-read chunk without
+        waiting for any of it."""
+        if not items:
+            return []
+        max_k = self.probe_params.kmer_len_up_bound + 1
+        submitted = []
+        for base, chunk, mat, lens in self._seed_chunks(items):
+            dmat = torch.from_numpy(mat).to(self.device)
+            dlens = torch.from_numpy(lens).to(self.device)
             freq, valid = scan.kmer_table_full(self.dix, dmat, dlens, max_k)
-            onehot = (dmat[:, :, None] == bases).to(torch.int32)
-            prefix = torch.zeros((R, L + 1, 4), dtype=torch.int32, device=dev)
-            torch.cumsum(onehot, dim=1, dtype=torch.int32, out=prefix[:, 1:])
-            if pp.manual:
-                attr = torch.full((R, L), pp.mode, dtype=torch.int32, device=dev)
-            else:
-                attr = seedscan.attributes(freq[pp.scan_kmer_len], prefix, dlens,
-                                           rep_thr, pp.scan_kmer_len)
-            n, starts, sizes, freqs, reps, statics = seedscan.scan_automaton(
-                freq, valid, attr, prefix, dlens, thr,
-                pp.start_kmer_len, pp.kmer_len_up_bound, tuple(pp.offset),
-                float(pp.hh_ratio))
-            sk, ek, oor = seedscan.estimate_best(
-                freq, n, starts, sizes, statics, pp.pb_coverage)
-            keep = seedscan.remove_hitchhiking(
-                n, starts, sizes, freqs, reps, pp.radius, float(pp.hh_ratio))
-            submitted.append((base, chunk,
-                              (n, starts, sizes, freqs, reps, statics,
-                               sk, ek, oor, keep)))
+            submitted.append((base, chunk, self._seed_records(freq, valid, dmat, dlens)))
         return submitted
+
+    def _seed_records(self, freq, valid, dmat, dlens):
+        """The seed scan of one chunk from its k-mer tables (freq, valid
+        [max_k+1, R, L] on the device): attributes, automaton, best k,
+        hitchhikers.  Returns the device records _seed_collect reads."""
+        pp = self.probe_params
+        R, L = dmat.shape
+        dev = self.device
+        rep_thr = float(self.thresh.get(2, pp.scan_kmer_len))
+        bases = torch.arange(1, 5, dtype=torch.int8, device=dev)
+        onehot = (dmat[:, :, None] == bases).to(torch.int32)
+        prefix = torch.zeros((R, L + 1, 4), dtype=torch.int32, device=dev)
+        torch.cumsum(onehot, dim=1, dtype=torch.int32, out=prefix[:, 1:])
+        if pp.manual:
+            attr = torch.full((R, L), pp.mode, dtype=torch.int32, device=dev)
+        else:
+            attr = seedscan.attributes(freq[pp.scan_kmer_len], prefix, dlens,
+                                       rep_thr, pp.scan_kmer_len)
+        n, starts, sizes, freqs, reps, statics = seedscan.scan_automaton(
+            freq, valid, attr, prefix, dlens, self._seed_thr,
+            pp.start_kmer_len, pp.kmer_len_up_bound, tuple(pp.offset),
+            float(pp.hh_ratio))
+        sk, ek, oor = seedscan.estimate_best(
+            freq, n, starts, sizes, statics, pp.pb_coverage)
+        keep = seedscan.remove_hitchhiking(
+            n, starts, sizes, freqs, reps, pp.radius, float(pp.hh_ratio))
+        return (n, starts, sizes, freqs, reps, statics, sk, ek, oor, keep)
 
     def _seed_collect(self, submitted):
         """Pull the seed records to the host and build Seed objects.
@@ -157,6 +172,38 @@ class BatchedSelfCorrector(SelfCorrector):
         (base, chunk, seeds_per_read)."""
         yield from self._seed_collect(self._seed_submit(items))
 
+    def _seed_table_chunks(self, items):
+        """Per-position (k, pos) freq/valid tables for the host seed scan
+        (search_seeds' freq_table/valid_table), one kmer_table_wire launch
+        per chunk.  Every chunk is launched before any is read back, so the
+        device computes chunk k+1 while chunk k crosses to the host.
+        Yields (base, chunk, freq int32 [K, n, L], valid bool [K, n, L],
+        lens [n]) for the chunk's n reads, K = min(kmer_len_up_bound+1,
+        KTAB) + 1."""
+        max_k = min(self.probe_params.kmer_len_up_bound + 1, KTAB)
+        submitted = []
+        for base, chunk, mat, lens in self._seed_chunks(items):
+            handle = scan.kmer_table_wire(self.dix, torch.from_numpy(mat).to(self.device),
+                                          torch.from_numpy(lens).to(self.device), max_k)
+            submitted.append((base, chunk, handle, lens))
+        for base, chunk, (freq, vbits), lens in submitted:
+            # int16 and bit-packed across the link, widened here so that the
+            # seed scan sees int32/bool tables
+            n = len(chunk)
+            f = freq.cpu().numpy()[:, :n].astype(np.int32)
+            v = scan.unpack_valid_bits(vbits.cpu().numpy(), max_k + 1)[:, :n]
+            yield base, chunk, f, v, lens[:n]
+
+    def _device_seed_tables(self, items):
+        """Dense tables for all reads: (freq int32 [K, N, L], valid bool
+        [K, N, L], lens int32 [N]) as numpy arrays."""
+        freqs, valids, lens_all = [], [], np.zeros(len(items), np.int32)
+        for base, chunk, f, v, lens in self._seed_table_chunks(items):
+            freqs.append(f)
+            valids.append(v)
+            lens_all[base : base + len(chunk)] = lens
+        return (np.concatenate(freqs, axis=1), np.concatenate(valids, axis=1),
+                lens_all)
 
     # ------------------------------------------------------------------
     # gap planning (PacBioSelfCorrectionProcess.cpp:159-189)

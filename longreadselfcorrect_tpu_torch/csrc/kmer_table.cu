@@ -1,69 +1,129 @@
-// kmer_table_full: freq + validity of the k-mer at every (read, pos) lane
-// for every k in 0..max_k, from one bi-interval LF ladder per lane.
+// The k-mer tables of the seed phase: for every (read, pos) lane, the
+// both-strand frequency (and validity) of the k-mer reads[pos : pos+k],
+// from one bi-interval LF ladder per lane (ladder.cuh).
 //
-// Replaces ops/scan.py:108 kmer_table_full of the JAX package (with its
-// fused-row occ, :83 _occ_fusedrow / :102 _update_fusedrow).
+// Replaces, from the JAX package's ops/scan.py:
+//   kmer_table_full (:108, with its fused-row occ :83 / :102): freq int32 and
+//     valid bool for every k in 0..max_k;
+//   kmer_table_wire (:143): the same table as int16 freq clipped at 32767
+//     and valid packed 8 k-levels per byte (bit b of byte g = row 8g + b);
+//   kmer_freq_scan (:32): int32 freq for each k of an ascending pool only.
 //
 // Bound on the H100: random reads into the index.  Each live step of a
 // lane extends the fwd interval on the RBWT and the rvc interval on the
 // BWT: four rank queries, each one 128-byte symbol row plus one checkpoint
 // word, into two ~140 MB tables at the bench scale, which the 50 MB L2
-// cannot hold.  Then the table writes: (max_k + 1) * R * L * 5 bytes.
+// cannot hold.  Then the table writes: (max_k + 1) * R * L * 5 bytes for
+// the full table, * 2.125 for the wire table, len(pool) * R * L * 4 for
+// the pool.
 //
 // Design: one thread per lane holds its four interval ends in registers
 // and walks k = 1..max_k, so the only memory traffic is the rank rows and
 // the coalesced table writes (consecutive threads = consecutive positions).
-// Blocks and checkpoints stay two arrays, not one fused row as on the TPU:
-// the TPU fused them to save a gather per query, while here a query reads
-// the checkpoint word as one extra 32-byte sector either way, and a fused
-// copy would double the index's device memory.
-// A strand whose interval became invalid (lo > hi) stays invalid with size
-// 0 under the LF math, so its rank queries are skipped: the outputs are
-// those of the JAX ladder, which keeps updating it.
+// The wire kernel clips and packs in registers: no int32 table exists in
+// between.  Blocks and checkpoints stay two arrays, not one fused row as on
+// the TPU: the TPU fused them to save a gather per query, while here a
+// query reads the checkpoint word as one extra 32-byte sector either way,
+// and a fused copy would double the index's device memory.
 // Row 0 is the JAX table's constant level 0 (freq -1, valid false).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "rank.cuh"
+#include "ladder.cuh"
 
 namespace {
 
-__global__ void kmer_table_full_kernel(
-    const int8_t* __restrict__ f_blocks, const int* __restrict__ f_ckpt,
-    const int* __restrict__ f_C, int f_nb, const int8_t* __restrict__ r_blocks,
-    const int* __restrict__ r_ckpt, const int* __restrict__ r_C, int r_nb,
-    const int8_t* __restrict__ reads, const int* __restrict__ lens, int R, int L,
-    int max_k, int* __restrict__ freq, bool* __restrict__ valid) {
-  const size_t plane = (size_t)R * L;
+constexpr int kThreads = 256;
+constexpr int kMaxPool = 16;
+
+struct Pool {
+  int n;
+  int k[kMaxPool];
+};
+
+struct Lane {
+  size_t id;  // r * L + p
+  int p, len;
+  const int8_t* row;
+  lrsc::BiInterval st;
+};
+
+// The lane of this thread, or false past the last lane.
+__device__ __forceinline__ bool lane_of(const lrsc::BlockRank& fwd,
+                                        const lrsc::BlockRank& rev,
+                                        const int8_t* __restrict__ reads,
+                                        const int* __restrict__ lens, int R, int L,
+                                        Lane& out) {
   const size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= plane) return;
+  if (lane >= (size_t)R * L) return false;
   const int r = (int)(lane / L);
-  const int p = (int)(lane - (size_t)r * L);
-  const int8_t* row = reads + (size_t)r * L;
-  const int len = lens[r];
+  out.id = lane;
+  out.p = (int)(lane - (size_t)r * L);
+  out.row = reads + (size_t)r * L;
+  out.len = lens[r];
+  out.st = lrsc::init_bi(fwd, rev, min(max((int)out.row[out.p], 0), 4));
+  return true;
+}
 
-  const int s0 = min(max((int)row[p], 0), 4);
-  int f_lo = __ldg(f_C + s0), f_hi = __ldg(f_C + s0 + 1) - 1;
-  const int c0 = lrsc::comp(s0);
-  int r_lo = __ldg(r_C + c0), r_hi = __ldg(r_C + c0 + 1) - 1;
+__global__ void kmer_table_full_kernel(lrsc::BlockRank fwd, lrsc::BlockRank rev,
+                                       const int8_t* __restrict__ reads,
+                                       const int* __restrict__ lens, int R, int L,
+                                       int max_k, int* __restrict__ freq,
+                                       bool* __restrict__ valid) {
+  Lane ln;
+  if (!lane_of(fwd, rev, reads, lens, R, L, ln)) return;
+  const size_t plane = (size_t)R * L;
+  freq[ln.id] = -1;
+  valid[ln.id] = false;
+  lrsc::ladder(fwd, rev, ln.row, ln.p, L, ln.len, 1, max_k, ln.st,
+               [&](int j, bool fake, const lrsc::BiInterval& s) {
+                 freq[j * plane + ln.id] = fake ? -1 : s.size();
+                 valid[j * plane + ln.id] = !fake && s.valid();
+               });
+}
 
-  freq[lane] = -1;
-  valid[lane] = false;
-  for (int j = 1; j <= max_k; ++j) {
-    const bool fake = p + j > len;
-    const int size = max(f_hi - f_lo + 1, 0) + max(r_hi - r_lo + 1, 0);
-    freq[j * plane + lane] = fake ? -1 : size;
-    valid[j * plane + lane] = !fake && f_lo <= f_hi && r_lo <= r_hi;
-    if (j == max_k) break;
-    const int nxt = p + j < L ? (int)row[p + j] : lrsc::kPadRank;
-    if (nxt >= lrsc::kPadRank) continue;  // past the read: state frozen
-    const int s = max(nxt, 0);
-    if (f_lo <= f_hi)
-      lrsc::update_interval(f_blocks, f_ckpt, f_C, f_nb, s, f_lo, f_hi);
-    if (r_lo <= r_hi)
-      lrsc::update_interval(r_blocks, r_ckpt, r_C, r_nb, lrsc::comp(s), r_lo, r_hi);
-  }
+__global__ void kmer_table_wire_kernel(lrsc::BlockRank fwd, lrsc::BlockRank rev,
+                                       const int8_t* __restrict__ reads,
+                                       const int* __restrict__ lens, int R, int L,
+                                       int max_k, int16_t* __restrict__ freq,
+                                       uint8_t* __restrict__ vbits) {
+  Lane ln;
+  if (!lane_of(fwd, rev, reads, lens, R, L, ln)) return;
+  const size_t plane = (size_t)R * L;
+  freq[ln.id] = -1;
+  unsigned byte = 0;  // row 0 is never valid: bit 0 of byte 0 stays clear
+  if (max_k == 0) vbits[ln.id] = 0;
+  lrsc::ladder(fwd, rev, ln.row, ln.p, L, ln.len, 1, max_k, ln.st,
+               [&](int j, bool fake, const lrsc::BiInterval& s) {
+                 freq[j * plane + ln.id] = fake ? (int16_t)-1 : (int16_t)min(s.size(), 32767);
+                 if (!fake && s.valid()) byte |= 1u << (j & 7);
+                 if ((j & 7) == 7 || j == max_k) {
+                   vbits[(j >> 3) * plane + ln.id] = (uint8_t)byte;
+                   byte = 0;
+                 }
+               });
+}
+
+__global__ void kmer_freq_scan_kernel(lrsc::BlockRank fwd, lrsc::BlockRank rev,
+                                      const int8_t* __restrict__ reads,
+                                      const int* __restrict__ lens, int R, int L,
+                                      Pool pool, int* __restrict__ freq) {
+  Lane ln;
+  if (!lane_of(fwd, rev, reads, lens, R, L, ln)) return;
+  const size_t plane = (size_t)R * L;
+  int i = 0;  // the next pool entry
+  lrsc::ladder(fwd, rev, ln.row, ln.p, L, ln.len, 1, pool.k[pool.n - 1], ln.st,
+               [&](int j, bool fake, const lrsc::BiInterval& s) {
+                 if (j == pool.k[i]) {
+                   freq[i * plane + ln.id] = fake ? -1 : s.size();
+                   ++i;
+                 }
+               });
+}
+
+unsigned grid(int R, int L) {
+  return (unsigned)(((size_t)R * L + kThreads - 1) / kThreads);
 }
 
 }  // namespace
@@ -74,13 +134,44 @@ extern "C" int lrsc_kmer_table_full(const int8_t* f_blocks, const int* f_ckpt,
                                     const int8_t* reads, const int* lens, int R,
                                     int L, int max_k, int* freq, bool* valid,
                                     void* stream) {
-  const size_t lanes = (size_t)R * L;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((lanes + threads - 1) / threads);
-  if (blocks > 0) {
-    kmer_table_full_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        f_blocks, f_ckpt, f_C, f_nb, r_blocks, r_ckpt, r_C, r_nb, reads, lens, R,
-        L, max_k, freq, valid);
+  if (grid(R, L) > 0) {
+    kmer_table_full_kernel<<<grid(R, L), kThreads, 0, (cudaStream_t)stream>>>(
+        lrsc::BlockRank{f_blocks, f_ckpt, f_C, f_nb},
+        lrsc::BlockRank{r_blocks, r_ckpt, r_C, r_nb}, reads, lens, R, L, max_k, freq,
+        valid);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lrsc_kmer_table_wire(const int8_t* f_blocks, const int* f_ckpt,
+                                    const int* f_C, int f_nb, const int8_t* r_blocks,
+                                    const int* r_ckpt, const int* r_C, int r_nb,
+                                    const int8_t* reads, const int* lens, int R,
+                                    int L, int max_k, int16_t* freq, uint8_t* vbits,
+                                    void* stream) {
+  if (grid(R, L) > 0) {
+    kmer_table_wire_kernel<<<grid(R, L), kThreads, 0, (cudaStream_t)stream>>>(
+        lrsc::BlockRank{f_blocks, f_ckpt, f_C, f_nb},
+        lrsc::BlockRank{r_blocks, r_ckpt, r_C, r_nb}, reads, lens, R, L, max_k, freq,
+        vbits);
+  }
+  return (int)cudaGetLastError();
+}
+
+// pool: n_pool strictly ascending sizes >= 1, in host memory; n_pool <= 16.
+extern "C" int lrsc_kmer_freq_scan(const int8_t* f_blocks, const int* f_ckpt,
+                                   const int* f_C, int f_nb, const int8_t* r_blocks,
+                                   const int* r_ckpt, const int* r_C, int r_nb,
+                                   const int8_t* reads, const int* lens, int R, int L,
+                                   const int* pool, int n_pool, int* freq,
+                                   void* stream) {
+  if (n_pool < 1 || n_pool > kMaxPool) return (int)cudaErrorInvalidValue;
+  Pool p{n_pool, {}};
+  for (int i = 0; i < n_pool; ++i) p.k[i] = pool[i];
+  if (grid(R, L) > 0) {
+    kmer_freq_scan_kernel<<<grid(R, L), kThreads, 0, (cudaStream_t)stream>>>(
+        lrsc::BlockRank{f_blocks, f_ckpt, f_C, f_nb},
+        lrsc::BlockRank{r_blocks, r_ckpt, r_C, r_nb}, reads, lens, R, L, p, freq);
   }
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,78 @@
+// The per-lane bi-interval ladder of the k-mer tables, shared by the kernels
+// of kmer_table.cu and planes.cu.
+//
+// Replaces the level loop that the JAX package's ops/scan.py writes out in
+// each of kmer_freq_scan (:49-61), kmer_table_full (:124-139) and
+// kmer_table_planes (:305-319).
+//
+// Lane (r, p) holds the bi-interval of reads[r, p : p+j] after step j: the
+// fwd interval on the RBWT and the reverse-complement interval on the BWT.
+// Step j appends the character at p + j; a lane whose window left the row
+// (PAD_RANK or past L) keeps its state, and its snapshots are fake anyway.
+// A strand whose interval became invalid (lo > hi) stays invalid with size
+// 0 under the LF math, so its rank queries are skipped: the snapshots are
+// those of the JAX ladder, which keeps updating it.
+//
+// The rank is a template argument: BlockRank counts in the 128-symbol rows
+// of rank.cuh, planes.cuh's PlaneRank in bit-plane rows.
+#pragma once
+
+#include <cstdint>
+
+#include "rank.cuh"
+
+namespace lrsc {
+
+struct BiInterval {
+  int f_lo, f_hi, r_lo, r_hi;
+
+  // getFreq of both strands (BWTInterval.h:27-29)
+  __device__ __forceinline__ int size() const {
+    return max(f_hi - f_lo + 1, 0) + max(r_hi - r_lo + 1, 0);
+  }
+  // BiBWTInterval::isValid: both strands valid (BWTInterval.h:84)
+  __device__ __forceinline__ bool valid() const {
+    return f_lo <= f_hi && r_lo <= r_hi;
+  }
+};
+
+// One BWT in the 128-symbol block layout (index/pack.py).
+struct BlockRank {
+  const int8_t* __restrict__ blocks;
+  const int* __restrict__ ckpt;
+  const int* __restrict__ C;
+  int nb;
+
+  __device__ __forceinline__ void update(int sym, int& lo, int& hi) const {
+    update_interval(blocks, ckpt, C, nb, sym, lo, hi);
+  }
+};
+
+// The interval of the one-character word s0 (init_bi).
+template <class Rank>
+__device__ __forceinline__ BiInterval init_bi(const Rank& fwd, const Rank& rev, int s0) {
+  const int c0 = comp(s0);
+  return BiInterval{__ldg(fwd.C + s0), __ldg(fwd.C + s0 + 1) - 1, __ldg(rev.C + c0),
+                    __ldg(rev.C + c0 + 1) - 1};
+}
+
+// Walks j = j0..j1 from st, the lane's state at level j0, calling
+// emit(j, fake, state) at each level (fake: the window p..p+j-1 runs past
+// the read's len).  row is the lane's read, L its padded width.
+template <class Rank, class Emit>
+__device__ __forceinline__ void ladder(const Rank& fwd, const Rank& rev,
+                                       const int8_t* __restrict__ row, int p, int L,
+                                       int len, int j0, int j1, BiInterval st,
+                                       Emit&& emit) {
+  for (int j = j0; j <= j1; ++j) {
+    emit(j, p + j > len, st);
+    if (j == j1) break;
+    const int nxt = p + j < L ? (int)row[p + j] : kPadRank;
+    if (nxt >= kPadRank) continue;  // past the read: state frozen
+    const int s = max(nxt, 0);
+    if (st.f_lo <= st.f_hi) fwd.update(s, st.f_lo, st.f_hi);
+    if (st.r_lo <= st.r_hi) rev.update(comp(s), st.r_lo, st.r_hi);
+  }
+}
+
+}  // namespace lrsc

@@ -28,9 +28,13 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
 # library -> its source; the kernels each library holds
 SOURCES = {"kmer_table": "kmer_table.cu", "seedscan": "seedscan.cu",
-           "walk": "walk.cu", "msa": "msa.cu"}
+           "walk": "walk.cu", "msa": "msa.cu", "planes": "planes.cu"}
 KERNELS = {
     "kmer_table_full": "kmer_table",
+    "kmer_table_wire": "kmer_table",
+    "kmer_freq_scan": "kmer_table",
+    "plane_rows": "planes",
+    "kmer_table_planes": "planes",
     "attributes": "seedscan",
     "scan_automaton": "seedscan",
     "estimate_best": "seedscan",
@@ -128,6 +132,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "lrsc_kmer_table_full": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                              _P, _P, _P],
+    "lrsc_kmer_table_wire": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                             _P, _P, _P],
+    # the pool is a host int array
+    "lrsc_kmer_freq_scan": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _I,
+                            _P, _P],
+    "lrsc_plane_rows": [_P, _P, _I, _P, _P],
+    "lrsc_kmer_table_planes": [_P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+                               _P, _P, _P],
     "lrsc_attributes": [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P],
     "lrsc_scan_automaton": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _F, _F, _P, _P, _P, _P, _P, _P, _P],

@@ -33,6 +33,22 @@ def test_signature_covers_every_argument(entry):
     assert len(cuda._SIGNATURES[entry]) == n_params
 
 
+@pytest.mark.parametrize("kernel", sorted(cuda.KERNELS))
+def test_kernel_entry_is_in_its_library_and_launched_once(kernel):
+    """lrsc_<kernel> is a C entry of the kernel's own library (planes.cu
+    builds apart from kmer_table.cu), and exactly one wrapper of ops/
+    launches it under the kernel's count."""
+    entry = f"lrsc_{kernel}"
+    assert ENTRIES[entry][0] == cuda.KERNELS[kernel]
+    ops = os.path.dirname(cuda.__file__)
+    calls = []
+    for name in sorted(os.listdir(ops)):
+        if name.endswith(".py") and name != "cuda.py":
+            with open(os.path.join(ops, name)) as fh:
+                calls += [name] * fh.read().count(f'"{entry}"')
+    assert len(calls) == 1, calls
+
+
 def test_every_kernel_has_a_library_and_a_count():
     assert set(cuda.LAUNCHES) == set(cuda.KERNELS)
     assert set(cuda.KERNELS.values()) == set(cuda.SOURCES)
