@@ -8,7 +8,8 @@ exits non-zero without the final result line):
 
 1. device   the card's name and power limit (nvidia-smi); no CUDA -> fail
 2. build    the fifteen CUDA kernels from longreadselfcorrect_tpu_torch/csrc
-            with nvcc, one process per source, all at once
+            with nvcc, one process per source, all at once; ptxas's
+            registers, stack frame and spill bytes of walk.cu's kernels
 3. data     the bench corpus recipe: a 4 Mb random genome (seed 2026), 30x
             of 2 kb reads (60,000 reads, ~120M symbols per strand) indexed
             with native/fmbuild and packed (with the host-built 8-mer
@@ -23,8 +24,10 @@ exits non-zero without the final result line):
 5. walks    each walk kernel against its plain version on the card, on the
             gap tasks the 256 noisy reads enumerate, exactly: the level-up
             11 -> 12, the prep of the bank, one superstep and a walk to
-            completion of a 512-lane batch, the queue engine on 1024 tasks;
-            then walk_steps and walk_queue at every further config the main
+            completion of a 512-lane batch, the queue engine on 1024 tasks,
+            each with the supersteps of its longest lane, the us per
+            superstep, the warps resident per SM and the shared bytes per
+            lane; then walk_steps and walk_queue at every further config the main
             path routes these tasks to (the bulk's narrow-chain bank, the
             batch buckets, the wide and dense reruns of flagged lanes), and
             an L = 32, a dense batch and each config of the ladder in any
@@ -78,6 +81,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -188,6 +192,28 @@ def phase_device():
 # phase 2: build
 # ---------------------------------------------------------------------------
 
+def ptxas_report(log: str) -> list:
+    """[kernel, registers, stack frame bytes, spill store bytes, spill load
+    bytes] of each entry function of an nvcc -Xptxas -v log."""
+    out, name, frame = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"([a-z_]+)_kernel(?:ILi(\d+)E)?", m.group(1))
+            name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")) if k else m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = [int(x) for x in m.groups()]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append([name, int(m.group(1))] + (frame or [0, 0, 0]))
+            name, frame = None, None
+    return out
+
+
 def phase_build():
     from longreadselfcorrect_tpu_torch.ops import cuda
 
@@ -197,6 +223,13 @@ def phase_build():
         cuda.library(lib)
     say(f"build: {len(paths)} libraries ({len(cuda.KERNELS)} kernels) for sm_90a "
         f"in {time.perf_counter() - t0:.2f}s")
+    if "walk" in cuda.BUILD_LOGS:
+        rep = ptxas_report(cuda.BUILD_LOGS["walk"])
+        say("build: walk.cu ptxas (kernel, registers, stack frame B, spill stores B, "
+            f"spill loads B): {json.dumps(rep)}")
+        check(any(r[0] == "walk_steps<4>" for r in rep), "build: no ptxas report for walk.cu")
+    else:
+        say("build: walk.cu was built by an earlier run: no ptxas report")
 
 
 # ---------------------------------------------------------------------------
@@ -581,6 +614,22 @@ def time_once(fn):
     return out, a.elapsed_time(b)
 
 
+LANE_FIELDS = ("longest_lane_steps", "us_per_step", "warps_per_sm", "lane_bytes",
+               "smem_per_block")
+
+
+def lane_fields(kernel, steps, ms):
+    """The walk kernels' own numbers: the supersteps of the longest lane
+    and the microseconds each took, the warps (gap lanes) resident per SM
+    and the shared memory of a lane and of a block, from the last launch."""
+    from longreadselfcorrect_tpu_torch.ops import walk
+
+    g = walk.GEOMETRY[kernel]
+    return dict(longest_lane_steps=steps, us_per_step=round(ms * 1e3 / steps, 3),
+                warps_per_sm=g["warps_per_sm"], lane_bytes=g["lane_bytes"],
+                smem_per_block=g["smem_per_block"])
+
+
 def phase_walks(corrector, items):
     """Each walk kernel against its plain version on the main path's
     shapes.  Returns {kernel: record}."""
@@ -652,11 +701,15 @@ def phase_walks(corrector, items):
             rp, plain_ms = time_once(lambda: walk.walk_steps_plain(wx, consts, sp, bcfg, nsteps))
         it = iter(clones)
         ms = time_ms(lambda: walk.walk_steps(wx, consts, next(it), bcfg, nsteps), reps=REPS)
+        # the supersteps of the longest lane: its label's growth, and the
+        # step that ends it
+        steps = min(nsteps, int((sp.cur_len - consts.init_k).max()) + 1)
         rec[f"walk_steps_{key}"] = dict(
             err=max(tensors_err(sk, sp), tensors_err(rk, rp)), ms=ms, plain_ms=plain_ms,
             bytes=c_bytes + 2 * st_bytes + nbytes(rk) + rc.rows * 132,
-            shape=f"G={WALK_BATCH}, steps {int(sp.cur_len.max() - consts.init_k.min())} "
-                  f"max, codes {sorted(set(rk.code.tolist()))}, {rc.rows} index rows")
+            shape=f"G={WALK_BATCH}, codes {sorted(set(rk.code.tolist()))}, "
+                  f"{rc.rows} index rows",
+            **lane_fields("walk_steps", steps, ms))
         del clones, sk, sp
     state = None
 
@@ -668,17 +721,22 @@ def phase_walks(corrector, items):
         want, plain_ms = time_once(lambda: walk.walk_queue_plain(wx, bank, QUEUE_TASKS,
                                                                  qcfg, MAX_STEPS))
     dev = bank.consts.q_len.device
-    lane = nbytes(walk.init_state(*walk._bank_rows(bank, torch.zeros(1, dtype=torch.long,
-                                                                       device=dev)),
-                                  torch.ones(1, dtype=torch.bool, device=dev), qcfg))
+    q_ms = time_ms(lambda: walk.walk_queue(wx, bank, QUEUE_TASKS, qcfg, MAX_STEPS))
+    # the supersteps of the longest task: the same tasks walked by walk_steps
+    idx = torch.arange(QUEUE_TASKS, device=dev)
+    qc, qr = walk._bank_rows(bank, idx)
+    qs = walk.init_state(qc, qr, torch.ones(QUEUE_TASKS, dtype=torch.bool, device=dev), qcfg)
+    walk.walk_steps(wx, qc, qs, replace(qcfg, G=QUEUE_TASKS), MAX_STEPS)
+    q_steps = int((qs.cur_len - qc.init_k).max()) + 1
+    del qc, qr, qs
+    # bound: the bank in, the reductions out, the index rows; a lane's walk
+    # state is neither input nor output of queue_run
     rec["walk_queue"] = dict(
-        err=tensors_err(got, want),
-        ms=time_ms(lambda: walk.walk_queue(wx, bank, QUEUE_TASKS, qcfg, MAX_STEPS)),
-        plain_ms=plain_ms,
-        bytes=nbytes(bank.consts) + nbytes(bank.root) + 2 * QUEUE_TASKS * lane
-        + nbytes(got) + rc.rows * 132,
+        err=tensors_err(got, want), ms=q_ms, plain_ms=plain_ms,
+        bytes=nbytes(bank.consts) + nbytes(bank.root) + nbytes(got) + rc.rows * 132,
         shape=f"T={QUEUE_TASKS}, codes {sorted(set(got.code.tolist()))}, "
-              f"{rc.rows} index rows")
+              f"{rc.rows} index rows",
+        **lane_fields("walk_queue", q_steps, q_ms))
     del bank, got, want
     torch.cuda.synchronize()
     for k, r in rec.items():
@@ -686,7 +744,8 @@ def phase_walks(corrector, items):
     say("walks: " + json.dumps([
         {"name": k, "max_abs_err": r["err"], "ms": round(r["ms"], 4),
          "plain_ms": round(r["plain_ms"], 3), "bound_ms": round(r["bound_ms"], 5),
-         "bytes": r["bytes"], "shape": r["shape"]} for k, r in rec.items()])
+         "bytes": r["bytes"], "shape": r["shape"],
+         **{f: r[f] for f in LANE_FIELDS if f in r}} for k, r in rec.items()])
         + f" in {time.perf_counter() - t_phase:.1f}s")
 
     checks = ConfigChecks(corrector, prim)
@@ -748,7 +807,9 @@ class ConfigChecks:
             label=label, L=cfg.L, MAXLEN=cfg.MAXLEN, KMAX=cfg.KMAX, SLAB=cfg.SLAB,
             SB=cfg.SB, G=len(chunk), err=max(tensors_err(sk, state), tensors_err(rk, rp)),
             ms=round(ms, 4), plain_ms=round(plain_ms, 3),
-            codes=sorted(set(rk.code.tolist())))
+            codes=sorted(set(rk.code.tolist())),
+            lane_bytes=walk.lane_smem_bytes(cfg).total,
+            warps_per_sm=walk.GEOMETRY["walk_steps"]["warps_per_sm"])
         self.t += time.perf_counter() - t0
         return rk
 
@@ -782,7 +843,9 @@ class ConfigChecks:
                 want, plain_ms = time_once(lambda: walk.walk_queue_plain(
                     c.wx, bank, n, cfg, MAX_STEPS))
                 self.queue[key] = dict(label=name, T=n, err=tensors_err(got, want),
-                                       plain_ms=round(plain_ms, 3))
+                                       plain_ms=round(plain_ms, 3),
+                                       lane_bytes=walk.lane_smem_bytes(cfg).total,
+                                       warps_per_sm=walk.GEOMETRY["walk_queue"]["warps_per_sm"])
         self.t += time.perf_counter() - t0
         while work:
             label, chunk, cfg = work.pop(0)

@@ -10,24 +10,28 @@
 //   chain-ring slots; thread 0 does the root interval and the tails.
 //   Bound: the LF ladders' rank rows.
 // * walk_steps (walk.py:997 superstep, :1639 multistep, :1647
-//   run_to_completion, :1600 _reduce_results): one thread per gap lane runs
-//   up to n supersteps (a lane that has finished no longer changes, so
-//   multistep and run_to_completion are the same loop), then reduces.
-// * walk_queue (walk.py:1802 queue_run): a persistent kernel; each thread
-//   is a lane that takes the next task of the bank from a head counter
-//   (atomicAdd), seeds it (_init_state), walks it to completion or
-//   max_steps (-900) and writes its reduction.  A task's result does not
-//   depend on the lane that walks it.
+//   run_to_completion, :1600 _reduce_results): one warp per gap lane loads
+//   the lane's WalkState row into shared memory, runs up to n supersteps
+//   (a lane that has finished no longer changes, so multistep and
+//   run_to_completion are the same loop), writes the row back and reduces.
+// * walk_queue (walk.py:1802 queue_run): a persistent grid, as many warps
+//   as fit the card; lane 0 of a warp takes the next task of the bank from
+//   a head counter (atomicAdd), the warp seeds it in shared memory
+//   (_init_state), walks it to completion or max_steps (-900) and writes
+//   its reduction.  No lane state lives in device memory.  A task's result
+//   does not depend on the warp that walks it.
 // Bound of the walk kernels: the rank queries of every superstep (random
-// rows in a 2 x ~140 MB index at the bench scale) and the lane state,
-// read and written once per step.  The design is the simple one, one
-// thread per lane with the state in global memory; a block-per-lane
-// layout with a thread per candidate is the way to make it faster.
+// 128-byte rows in a 2 x ~140 MB index at the bench scale).  A superstep
+// is a chain of rounds of independent rank queries, each round spread over
+// the warp (walk.cuh), so a step costs a few memory latencies; the lane
+// state stays in shared memory (walk.cuh's layout) and touches device
+// memory only at load, write-back and results.
 //
 // Built with -fmad=false -prec-div=true -ftz=false: the f32 compares must
 // give the JAX results bit for bit (walk.cuh).
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "walk.cuh"
@@ -35,8 +39,6 @@
 namespace {
 
 using namespace lrsc::walk;
-
-constexpr int kLaneThreads = 64;
 
 // argument arrays from the Python wrappers (ops/walk.py), in its order
 struct Args {
@@ -174,10 +176,6 @@ Root read_root(Args& a) {
   return r;
 }
 
-__host__ __device__ int scratch_words(const Cfg& c) {
-  return (c.L * c.MAXLEN + 3) / 4 + c.L * c.RING + c.L * 4 * c.NC;
-}
-
 // ---------------------------------------------------------------------------
 
 __global__ void wcache_level_up_kernel(Index ix, int n, const int* __restrict__ f_lo,
@@ -203,56 +201,103 @@ __global__ void walk_prep_kernel(Index ix, PrepIn P, PrepOut O, int T) {
   if (t < T) prep_task(ix, P, O, t, threadIdx.x, blockDim.x);
 }
 
+constexpr int kMaxWarps = 4;  // warps (gap lanes) per block
+// blocks an SM should hold: at L = 4 the shared memory allows 5 blocks of
+// 4 lanes at the main config, and telling ptxas so (at most 102 registers
+// a thread) is what keeps it from spilling; at L = 32 a lane needs tens of
+// KB, and one block an SM is what fits
 template <int LM>
-__global__ void walk_steps_kernel(Index ix, Cfg cf, Consts K, State S, Reduced R,
-                                  int* scratch, int G, int n) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= G) return;
-  const Lane<LM> lane{ix, cf, K, S, g, g};
-  int* scr = scratch + (size_t)g * scratch_words(cf);
-  for (int s = 0; s < n; ++s) {
-    if (!S.active[g] || S.code[g] != 0) break;
-    lane.step(scr);
-  }
-  lane.reduce(R, g);
+constexpr int kMinBlocks = LM <= 4 ? 5 : 1;
+
+__device__ __forceinline__ char* dyn_smem() {
+  extern __shared__ int4 walk_smem[];
+  return reinterpret_cast<char*>(walk_smem);
 }
 
 template <int LM>
-__global__ void walk_queue_kernel(Index ix, Cfg cf, Consts K, State S, Reduced R,
-                                  int* scratch, Root RT, int* head, int G,
-                                  int max_steps, int n) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks<LM>)
+    walk_steps_kernel(Index ix, Cfg cf, Consts K, State S, Reduced R, int G, int n,
+                      int lane_bytes) {
+  const int w = threadIdx.x >> 5, g = blockIdx.x * (blockDim.x >> 5) + w;
   if (g >= G) return;
-  int* scr = scratch + (size_t)g * scratch_words(cf);
+  Walker<LM> walker(ix, cf, K, dyn_smem() + (size_t)w * lane_bytes);
+  walker.load_task(g);
+  if (S.active[g] && S.code[g] == 0) {
+    walker.load(S, g);
+    for (int s = 0; s < n && walker.active && walker.code == 0; ++s) walker.step();
+    walker.store(S, g);
+  }
+  walker.reduce_state(S, g, R, g);
+}
+
+template <int LM>
+__global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks<LM>)
+    walk_queue_kernel(Index ix, Cfg cf, Consts K, Reduced R, Root RT, int* head,
+                      int max_steps, int n, int lane_bytes) {
+  const int w = threadIdx.x >> 5;
+  Walker<LM> walker(ix, cf, K, dyn_smem() + (size_t)w * lane_bytes);
   for (;;) {
-    const int t = atomicAdd(head, 1);
+    int t = 0;
+    if (walker.lane == 0) t = atomicAdd(head, 1);
+    t = __shfl_sync(kFull, t, 0);
     if (t >= n) break;
-    const Lane<LM> lane{ix, cf, K, S, g, t};
-    lane.seed(RT);
-    int steps = 0;
-    while (steps < max_steps && S.code[g] == 0) {
-      lane.step(scr);
-      ++steps;
-    }
-    if (S.code[g] == 0) S.code[g] = -900;
-    lane.reduce(R, t);
+    walker.load_task(t);
+    walker.seed(RT);
+    for (int s = 0; s < max_steps && walker.code == 0; ++s) walker.step();
+    if (walker.code == 0) walker.code = -900;
+    walker.reduce_smem(R, t);
+    __syncwarp();
   }
 }
 
+// Launch geometry of a walk kernel from the plan the wrapper passes (the
+// bytes of one lane's shared memory, lanes per block), checked against
+// this file's own layout; info: [blocks per SM, warps per block, blocks,
+// shared bytes per block].  0 or a CUDA error.
+template <class Kern>
+int geometry(Kern kern, const Cfg& cf, int lane_bytes, int warps, int lanes, int* info,
+             int& blocks, bool persistent) {
+  if (cf.L < 1 || cf.L > 32 || cf.RMAX > 64 || cf.MAXLEN >= (1 << 16) ||
+      cf.QMAX >= (1 << 16) || warps < 1 || warps > kMaxWarps ||
+      lane_layout(cf).total != lane_bytes)
+    return (int)cudaErrorInvalidValue;
+  const int smem = warps * lane_bytes;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0, dev = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, warps * 32, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  blocks = (lanes + warps - 1) / warps;
+  if (persistent) blocks = std::min(blocks, per_sm * sms);
+  info[0] = per_sm;
+  info[1] = warps;
+  info[2] = blocks;
+  info[3] = smem;
+  return 0;
+}
+
 template <int LM>
-int launch_steps(Index ix, Cfg cf, Consts K, State S, Reduced R, int* scratch, int G,
-                 int n, cudaStream_t st) {
-  const int blocks = (G + kLaneThreads - 1) / kLaneThreads;
-  walk_steps_kernel<LM><<<blocks, kLaneThreads, 0, st>>>(ix, cf, K, S, R, scratch, G, n);
+int launch_steps(Index ix, Cfg cf, Consts K, State S, Reduced R, int G, int n,
+                 int lane_bytes, int warps, int* info, cudaStream_t st) {
+  int blocks = 0;
+  const int rc = geometry(walk_steps_kernel<LM>, cf, lane_bytes, warps, G, info, blocks, false);
+  if (rc != 0) return rc;
+  walk_steps_kernel<LM><<<blocks, warps * 32, warps * lane_bytes, st>>>(ix, cf, K, S, R, G, n,
+                                                                        lane_bytes);
   return (int)cudaGetLastError();
 }
 
 template <int LM>
-int launch_queue(Index ix, Cfg cf, Consts K, State S, Reduced R, int* scratch, Root RT,
-                 int* head, int G, int max_steps, int n, cudaStream_t st) {
-  const int blocks = (G + kLaneThreads - 1) / kLaneThreads;
-  walk_queue_kernel<LM><<<blocks, kLaneThreads, 0, st>>>(ix, cf, K, S, R, scratch, RT,
-                                                         head, G, max_steps, n);
+int launch_queue(Index ix, Cfg cf, Consts K, Reduced R, Root RT, int* head, int max_steps,
+                 int n, int lane_bytes, int warps, int* info, cudaStream_t st) {
+  int blocks = 0;
+  const int rc = geometry(walk_queue_kernel<LM>, cf, lane_bytes, warps, n, info, blocks, true);
+  if (rc != 0) return rc;
+  walk_queue_kernel<LM><<<blocks, warps * 32, warps * lane_bytes, st>>>(
+      ix, cf, K, R, RT, head, max_steps, n, lane_bytes);
   return (int)cudaGetLastError();
 }
 
@@ -319,38 +364,34 @@ extern "C" int lrsc_walk_prep(void* const* p, const int* d, void* stream) {
   return (int)cudaGetLastError();
 }
 
-extern "C" int lrsc_walk_steps(void* const* p, const int* d, void* stream) {
+extern "C" int lrsc_walk_steps(void* const* p, const int* d, int* info, void* stream) {
   Args a{p, d};
   Index ix = read_index(a);
   ix.wcache = a.ptr<const int*>();
   Consts K = read_consts(a);
   State S = read_state(a);
   Reduced R = read_reduced(a);
-  int* scratch = a.ptr<int*>();
   Cfg cf = read_cfg(a);
-  const int G = a.num(), n = a.num();
-  if (cf.L > 32 || cf.RMAX > 64) return (int)cudaErrorInvalidValue;
+  const int G = a.num(), n = a.num(), lane_bytes = a.num(), warps = a.num();
   if (G == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  return cf.L <= 4 ? launch_steps<4>(ix, cf, K, S, R, scratch, G, n, st)
-                   : launch_steps<32>(ix, cf, K, S, R, scratch, G, n, st);
+  return cf.L <= 4 ? launch_steps<4>(ix, cf, K, S, R, G, n, lane_bytes, warps, info, st)
+                   : launch_steps<32>(ix, cf, K, S, R, G, n, lane_bytes, warps, info, st);
 }
 
-extern "C" int lrsc_walk_queue(void* const* p, const int* d, void* stream) {
+extern "C" int lrsc_walk_queue(void* const* p, const int* d, int* info, void* stream) {
   Args a{p, d};
   Index ix = read_index(a);
   ix.wcache = a.ptr<const int*>();
   Consts K = read_consts(a);
-  State S = read_state(a);
   Reduced R = read_reduced(a);
-  int* scratch = a.ptr<int*>();
   Root RT = read_root(a);
   int* head = a.ptr<int*>();
   Cfg cf = read_cfg(a);
-  const int G = a.num(), max_steps = a.num(), n = a.num();
-  if (cf.L > 32 || cf.RMAX > 64) return (int)cudaErrorInvalidValue;
-  if (G == 0 || n == 0) return 0;
+  const int max_steps = a.num(), n = a.num(), lane_bytes = a.num(), warps = a.num();
+  if (n == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  return cf.L <= 4 ? launch_queue<4>(ix, cf, K, S, R, scratch, RT, head, G, max_steps, n, st)
-                   : launch_queue<32>(ix, cf, K, S, R, scratch, RT, head, G, max_steps, n, st);
+  return cf.L <= 4
+             ? launch_queue<4>(ix, cf, K, R, RT, head, max_steps, n, lane_bytes, warps, info, st)
+             : launch_queue<32>(ix, cf, K, R, RT, head, max_steps, n, lane_bytes, warps, info, st);
 }

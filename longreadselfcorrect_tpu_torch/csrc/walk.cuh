@@ -1,28 +1,51 @@
 // The FM-extension walk of one gap lane, as __device__ functions shared by
-// the four kernels of walk.cu.
+// the kernels of walk.cu.
 //
 // Replaces the JAX package's ops/walk.py superstep (:997-1593) with its
 // helpers (:691-978), _reduce_results (:1600), the lane seeding of
 // _init_state (:521) and the per-task prep of _prep_core (:371-518).
 //
-// One thread walks one gap lane: it reads the lane's WalkState (global
-// memory, laid out [G, ...] as the torch tensors), runs the superstep's
-// vectorised JAX expressions as loops over the lane's L leaves and 4L
-// candidates, and writes the state back.  Lanes never interact.  Every
-// value is the JAX one bit for bit: the same integer formulas, the same
-// tie-breaks (first argmin, last writer per result slot, candidate order
-// in the leaf compaction), and the f32 error rates with the two fused
-// multiply-adds and the reciprocal multiply that XLA compiles into the
-// JAX function (__fmaf_rn / __fmul_rn; the file is built with -fmad=false
-// so nothing else is contracted).
+// One warp walks one gap lane.  The lane's state lives in shared memory
+// for the whole launch (the layout of `lane_layout`, mirrored by
+// ops/walk.py lane_smem_bytes):
+//   * two records per leaf slot (the scalars, the chain ring and the error
+//     ring of the leaf); a slot's current record is the one its bit of
+//     `owner` names, and a step writes a new leaf into the slot's other
+//     record while every parent is read from its current one, so nothing
+//     is copied back;
+//   * the labels as a per-position history: byte [pos * L + l] holds the
+//     symbol at pos of the label of the leaf in slot l when it was made,
+//     and the slot of that leaf's parent (3 + 5 bits).  A label is read
+//     back by walking the parents from its last position down to 0, once
+//     per result or per write-back; the loaded labels enter as positions
+//     whose parent is their own slot;
+//   * per-candidate scratch of one superstep, and the result slots.
+// The per-lane scalars (code, cur_len, cur_k, gerr_n, res_count, the
+// alive and owner bitmasks) are warp-uniform registers.
+//
+// A superstep is a sequence of rounds, each a set of independent items
+// spread over the warp's 32 threads (item i on thread i mod 32): the leaf
+// tests, the 4-way probes of every live leaf (thread = leaf, base, side:
+// one LF each), the level-1 probes, the isInsufficientFreqs refine (3 x
+// candidates x 2 sides), the per-candidate seed support, error rate and
+// termination, the chain rebuild of every new leaf (leaf, level, side).
+// The rank queries of a round are independent, so a round costs about one
+// memory latency.  Every lane-level decision comes out of a warp
+// collective and is the same on every thread, so the warp never diverges
+// on it.  The tie-breaks are the serial loop's: leaf compaction in
+// candidate order (ballot prefix counts), new result slots in candidate
+// order (the same), the last writer per result slot (the largest
+// candidate, atomicMax), the seed match's first strict minimum (the least
+// (diff, pos) key, atomicMin), isTerminated's last window (atomicMax);
+// min/max reductions are exact in any order.  Each candidate's f32
+// arithmetic stays in one thread with the intrinsics XLA's fused
+// multiply-adds give (__fmaf_rn / __fmul_rn; the file is built with
+// -fmad=false so nothing else is contracted).
 //
 // Rank queries go through rank.cuh directly: where the JAX slab engine
 // (SLAB configs) reads a rank off a block slab, every such query lies in
 // the slab, so the value is the direct rank; only the slab span test and
 // its -300 escape, and the slab path's (0, -1) for empty intervals, stay.
-//
-// The label, ring and chain buffers of the new leaves are written to a
-// per-lane scratch row while the parents' are read, then copied back.
 #pragma once
 
 #include <cstdint>
@@ -33,6 +56,7 @@ namespace lrsc {
 namespace walk {
 
 constexpr int kPad = 5;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Index {
   const int8_t* fb;  // RBWT blocks (the fwd side of the bi-interval)
@@ -129,6 +153,13 @@ __device__ __forceinline__ void lf_f(const Index& ix, int sym, int& lo, int& hi)
 __device__ __forceinline__ void lf_r(const Index& ix, int sym, int& lo, int& hi) {
   update_interval(ix.rb, ix.rck, ix.rC, ix.rnb, sym, lo, hi);
 }
+// side 0: the fwd interval by sym; side 1: the rvc interval by comp(sym)
+__device__ __forceinline__ void lf_side(const Index& ix, int side, int sym, int& lo, int& hi) {
+  if (side == 0)
+    lf_f(ix, sym, lo, hi);
+  else
+    lf_r(ix, comp(sym), lo, hi);
+}
 
 // the walk-convention bi-interval extension (rank.extend_bi): append sym
 __device__ __forceinline__ void extend_bi(const Index& ix, int sym, int* st) {
@@ -146,25 +177,6 @@ __device__ __forceinline__ void wcache_get(const Index& ix, int code, int* st) {
   for (int q = 0; q < 4; ++q) st[q] = __ldg(ix.wcache + (size_t)code * 4 + q);
 }
 
-// _probe4: the four 1-base extensions of one bi-interval; an invalid side
-// keeps its interval.  out[q][b] for q in (f_lo, f_hi, r_lo, r_hi), and
-// freq[b].
-__device__ void probe4(const Index& ix, int flo, int fhi, int rlo, int rhi,
-                       int out[4][4], int freq[4]) {
-  const bool fv = flo <= fhi, rv = rlo <= rhi;
-  for (int b = 0; b < 4; ++b) {
-    int a = flo, z = fhi;
-    if (fv) lf_f(ix, b + 1, a, z);
-    out[0][b] = a;
-    out[1][b] = z;
-    int c = rlo, d = rhi;
-    if (rv) lf_r(ix, 4 - b, c, d);
-    out[2][b] = c;
-    out[3][b] = d;
-    freq[b] = isize(a, z) + isize(c, d);
-  }
-}
-
 __device__ __forceinline__ bool cutoff(int freq, int total, int maxf, bool m5,
                                        int tailc, int t) {
   const float ratio = __fdiv_rn((float)freq, (float)maxf);
@@ -177,20 +189,16 @@ __device__ __forceinline__ bool cutoff(int freq, int total, int maxf, bool m5,
   return ratio >= cut;
 }
 
-// SelectFreqsOfrange (:281-331); freq3[i][x] with mask[x], x < n
-__device__ int select_freqs(const Consts& K, const int* f0, const int* f1,
-                            const int* f2, const bool* mask, int n, int lower,
-                            int upper) {
-  const int* f3[3] = {f0, f1, f2};
+// SelectFreqsOfrange (:281-331) from the masked maxima of the three sizes
+__device__ __forceinline__ int select_freqs(const Consts& K, const int (&maxf)[3], int lower,
+                                            int upper) {
   int rs = upper;
   bool decided = false;
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
     const int ln = lower + i;
-    int maxf = 0;
-    for (int x = 0; x < n; ++x)
-      if (mask[x]) maxf = max(maxf, f3[i][x]);
     const int expected = (int)K.freqs[clampi(ln, 0, 100)];
-    if (ln <= upper && maxf - expected < 5 && !decided) {
+    if (ln <= upper && maxf[i] - expected < 5 && !decided) {
       rs = ln;
       decided = true;
     }
@@ -198,619 +206,924 @@ __device__ int select_freqs(const Consts& K, const int* f0, const int* f1,
   return rs;
 }
 
+// the k-th set bit (k from 0) of m
+__device__ __forceinline__ int nth_bit(unsigned m, int k) {
+  for (int i = 0; i < k; ++i) m &= m - 1;
+  return __ffs(m) - 1;
+}
+__device__ __forceinline__ unsigned low_mask(int n) {
+  return n >= 32 ? kFull : (1u << n) - 1u;
+}
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+__device__ __forceinline__ int warp_max(int v) {
+  return (int)__reduce_max_sync(kFull, (unsigned)max(v, 0));
+}
+
+// ---------------------------------------------------------------------------
+// the lane's shared-memory layout (bytes), mirrored by ops/walk.py
+// lane_smem_bytes
+// ---------------------------------------------------------------------------
+
+// leaf record: the scalars, then the chain ring [4][NC], then the error ring
+enum Field {
+  F_FLO, F_FHI, F_RLO, F_RHI, F_KFREQ, F_TOTK, F_LSEED, F_LOVL, F_TSEEDS, F_COVL,
+  F_NERR, F_SIO, F_QOVL, F_REDA, F_REDB, F_RF, F_RS, F_TLET, F_TCNT, F_T9, F_T8,
+  F_LERR, F_GLAST, F_LEN, kScal
+};
+// candidate scratch: [0, 16) the level-0 and level-1 probes (5 + 5), then
+// the refine's three levels (12), then the new counters (NewField); the
+// chosen interval and freq at 16; the seed key at 21 and isTerminated's
+// last window at 22
+constexpr int kCandW = 24, C_P0 = 0, C_P1 = 5, C_CI = 16, C_KEY = 21, C_IMAX = 22;
+enum NewField {
+  N_LSEED, N_LOVL, N_TSEEDS, N_COVL, N_NERR, N_SIO, N_QOVL, N_REDA, N_REDB, N_RF, N_RS,
+  N_GERR, N_LOCAL
+};
+
+struct Layout {
+  int RS;                                  // ints per leaf record
+  int rec, cand, res, lsrc, hist, total;   // byte offsets, total bytes
+};
+
+__host__ __device__ __forceinline__ int align16(int x) { return (x + 15) & ~15; }
+
+__host__ __device__ __forceinline__ Layout lane_layout(const Cfg& c) {
+  Layout y;
+  y.RS = kScal + 4 * c.NC + ((c.RING + 3) & ~3);
+  int off = 0;
+  y.rec = off;
+  off += 2 * c.L * y.RS * 4;
+  y.cand = off;
+  off += 4 * c.L * kCandW * 4;
+  y.res = off;  // res_len, res_err, res_i, res_ref, src: [RMAX] each
+  off += align16(5 * c.RMAX * 4);
+  y.lsrc = off;
+  off += align16(c.L * 4);
+  y.hist = off;
+  off += align16(c.MAXLEN * c.L);
+  y.total = off;
+  return y;
+}
+
+// ---------------------------------------------------------------------------
+// one gap lane, walked by one warp
+// ---------------------------------------------------------------------------
+
 template <int LM>
-struct Lane {
+struct Walker {
+  static constexpr int NW = (4 * LM + 31) / 32;  // candidate rounds / mask words
+
   const Index& ix;
   const Cfg& cf;
   const Consts& K;
-  const State& S;
-  int g;  // lane
+  char* sm;
+  Layout Y;
+  int lane;
   int t;  // task row of the constants
+  int max_length, max_overlap, min_overlap, min_sa, max_indel, q_len, min_length, n_term;
+  bool no_term;
+  // warp-uniform lane state
+  bool active, overflow;
+  int code, cur_len, cur_k, gerr_n, res_count;
+  unsigned alive, owner;
 
-  __device__ int chain_at(int l, int q, int j) const {
-    return S.chain[(((size_t)g * cf.L + l) * 4 + q) * cf.NC + j];
+  __device__ __forceinline__ Walker(const Index& ix_, const Cfg& cf_, const Consts& K_, char* sm_)
+      : ix(ix_), cf(cf_), K(K_), sm(sm_), Y(lane_layout(cf_)), lane(threadIdx.x & 31) {}
+
+  __device__ __forceinline__ int* rec(int buf, int l) const {
+    return reinterpret_cast<int*>(sm + Y.rec) + (buf * cf.L + l) * Y.RS;
+  }
+  __device__ __forceinline__ int* cur(int l) const { return rec((owner >> l) & 1, l); }
+  __device__ __forceinline__ int* nxt(int l) const { return rec(((owner >> l) & 1) ^ 1, l); }
+  __device__ __forceinline__ float* ring(const int* r) const {
+    return reinterpret_cast<float*>(const_cast<int*>(r) + kScal + 4 * cf.NC);
+  }
+  __device__ __forceinline__ int* cnd(int c) const {
+    return reinterpret_cast<int*>(sm + Y.cand) + c * kCandW;
+  }
+  __device__ __forceinline__ int* res_len() const { return reinterpret_cast<int*>(sm + Y.res); }
+  __device__ __forceinline__ float* res_err() const {
+    return reinterpret_cast<float*>(sm + Y.res) + cf.RMAX;
+  }
+  __device__ __forceinline__ int* res_i() const { return res_len() + 2 * cf.RMAX; }
+  __device__ __forceinline__ int* res_ref() const { return res_len() + 3 * cf.RMAX; }
+  __device__ __forceinline__ int* src() const { return res_len() + 4 * cf.RMAX; }
+  __device__ __forceinline__ int* lsrc() const { return reinterpret_cast<int*>(sm + Y.lsrc); }
+  __device__ __forceinline__ uint8_t* hist() const { return reinterpret_cast<uint8_t*>(sm + Y.hist); }
+
+  __device__ __forceinline__ static bool bit(const unsigned* w, int c) {
+    bool b = false;
+#pragma unroll
+    for (int k = 0; k < NW; ++k)
+      if (k == (c >> 5)) b = (w[k] >> (c & 31)) & 1;
+    return b;
+  }
+  __device__ __forceinline__ static int count(const unsigned* w) {
+    int n = 0;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) n += __popc(w[k]);
+    return n;
+  }
+  // the k-th set candidate of w
+  __device__ __forceinline__ static int nth(const unsigned* w, int k) {
+#pragma unroll
+    for (int q = 0; q < NW; ++q) {
+      const int n = __popc(w[q]);
+      if (k < n) return 32 * q + nth_bit(w[q], k);
+      k -= n;
+    }
+    return -1;
   }
 
-  // ismatchedbykmer (:787-821)
-  __device__ bool match5(int code5, int cur_len, int max_indel) const {
-    const int lo = max(cur_len - max_indel, 0), hi = min(cur_len + max_indel, cf.QMAX - 1);
-    const int* row = K.qcode5 + (size_t)t * cf.QMAX;
-    for (int p = lo; p <= hi; ++p) {
-      const int c = row[p];
-      if (c >= 0 && c == code5) return true;
-    }
-    return false;
+  __device__ __forceinline__ void load_task(int task) {
+    t = task;
+    max_length = K.max_length[t];
+    max_overlap = K.max_overlap[t];
+    min_overlap = K.min_overlap[t];
+    min_sa = K.min_sa[t];
+    max_indel = K.max_indel[t];
+    q_len = K.q_len[t];
+    min_length = K.min_length[t];
+    n_term = K.n_term[t];
+    no_term = K.no_term[t];
   }
 
-  // one attempt round over the L leaves (JAX `attempt` + _leaf_choice)
-  __device__ bool attempt(const int (*p)[4][4], const int (*fq)[4], int thresh,
-                          const bool* alive1, const bool* retry_ok,
-                          const bool* tie_leaf, const int* tailc, const int* cand5,
-                          int cur_len, int max_indel, bool (*ext)[4],
-                          bool (*mt1)[4], bool (*m5)[4], int* tot, int* mx) const {
-    bool haz = false;
-    for (int l = 0; l < cf.L; ++l) {
-      int total = 0, maxf = fq[l][0];
-      for (int b = 0; b < 4; ++b) {
-        total += fq[l][b];
-        maxf = max(maxf, fq[l][b]);
+  // 4-way probes (probe4) of every leaf in `leaves` into candidate field
+  // po: item = (leaf, base, side), one LF each; j >= 0 probes chain slot j,
+  // j < 0 the leaf interval (replaced by chain slot jmo when ref0)
+  __device__ __forceinline__ void probe(unsigned leaves, int po, int j, bool ref0, int jmo) const {
+    const int NC = cf.NC, n = 8 * __popc(leaves);
+    for (int i = lane; i < n; i += 32) {
+      const int l = nth_bit(leaves, i >> 3), b = (i >> 1) & 3, side = i & 1;
+      const int* r = cur(l);
+      int lo, hi;
+      if (j >= 0 || ref0) {
+        const int jj = j >= 0 ? j : jmo;
+        lo = r[kScal + 2 * side * NC + jj];
+        hi = r[kScal + (2 * side + 1) * NC + jj];
+      } else {
+        lo = r[F_FLO + 2 * side];
+        hi = r[F_FHI + 2 * side];
       }
-      tot[l] = total;
-      mx[l] = maxf;
-      bool mt[4], any_t = false, any_t1 = false;
-      for (int b = 0; b < 4; ++b) {
-        const bool pvalid = p[l][0][b] <= p[l][1][b] || p[l][2][b] <= p[l][3][b];
-        m5[l][b] = pvalid && match5(cand5[l * 4 + b], cur_len, max_indel);
-        mt[b] = cutoff(fq[l][b], total, maxf, m5[l][b], tailc[l], thresh);
-        mt1[l][b] = cutoff(fq[l][b], total, maxf, m5[l][b], tailc[l], thresh - 1);
-        any_t |= mt[b];
-        any_t1 |= mt1[l][b];
-      }
-      for (int b = 0; b < 4; ++b)
-        ext[l][b] = alive1[l] && (any_t ? mt[b] : (retry_ok[l] && mt1[l][b]));
-      haz |= tie_leaf[l] && alive1[l] && !any_t && any_t1;
+      if (lo <= hi) lf_side(ix, side, b + 1, lo, hi);
+      int* P = cnd(4 * l + b) + po;
+      P[2 * side] = lo;
+      P[2 * side + 1] = hi;
     }
-    return haz;
+    __syncwarp();
+    for (int c = lane; c < 4 * cf.L; c += 32)
+      if ((leaves >> (c >> 2)) & 1) {
+        int* P = cnd(c) + po;
+        P[4] = isize(P[0], P[1]) + isize(P[2], P[3]);
+      }
+    __syncwarp();
+  }
+
+  // `attempt` (+ _leaf_choice) on the probes at po for the alive1 leaves:
+  // ext at threshold min_sa (retry at min_sa - 1); with lvl2, also level
+  // 2's ext (threshold min_sa - 1, retry at min_sa - 2)
+  __device__ __forceinline__ void attempt(int po, unsigned alive1, unsigned retry, unsigned tie,
+                          const unsigned* m5w, bool lvl2, unsigned* ext, unsigned* ext2,
+                          bool& haz, bool& haz2) const {
+    const int C = 4 * cf.L;
+    bool h = false, h2 = false;
+#pragma unroll
+    for (int r = 0; r < NW; ++r) {
+      const int c = 32 * r + lane, l = c >> 2, b = c & 3;
+      const bool in = c < C && ((alive1 >> (l & 31)) & 1);
+      bool mt = false, mt1 = false, mt2 = false;
+      if (in) {
+        int total = 0, maxf = cnd(4 * l)[po + 4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int f = cnd(4 * l + x)[po + 4];
+          total += f;
+          maxf = max(maxf, f);
+        }
+        const int* P = cnd(c) + po;
+        const int fqb = P[4];
+        const bool m5 = (P[0] <= P[1] || P[2] <= P[3]) && bit(m5w, c);
+        const int tailc = cur(l)[F_TCNT];
+        mt = cutoff(fqb, total, maxf, m5, tailc, min_sa);
+        mt1 = cutoff(fqb, total, maxf, m5, tailc, min_sa - 1);
+        if (lvl2) mt2 = cutoff(fqb, total, maxf, m5, tailc, min_sa - 2);
+      }
+      const int sh = lane & ~3;
+      const bool any_t = (__ballot_sync(kFull, mt) >> sh) & 0xF;
+      const bool any_t1 = (__ballot_sync(kFull, mt1) >> sh) & 0xF;
+      const bool any_t2 = (__ballot_sync(kFull, mt2) >> sh) & 0xF;
+      const bool ret = (retry >> (l & 31)) & 1, ti = (tie >> (l & 31)) & 1;
+      ext[r] = __ballot_sync(kFull, in && (any_t ? mt : (ret && mt1)));
+      ext2[r] = __ballot_sync(kFull, in && (any_t1 ? mt1 : (ret && mt2)));
+      h |= in && ti && !any_t && any_t1;
+      h2 |= in && ti && !any_t1 && any_t2;
+    }
+    haz = __any_sync(kFull, h);
+    haz2 = __any_sync(kFull, h2);
   }
 
   // one superstep of this lane (JAX superstep)
-  __device__ void step(int* scratch) const {
+  __device__ __forceinline__ void step() {
     const int L = cf.L, C = 4 * L, NC = cf.NC, SS = cf.SS, CK = cf.CK;
-    const size_t gl = (size_t)g * L;
-    bool* alive = S.alive + gl;
-    const int max_length = K.max_length[t], max_overlap = K.max_overlap[t];
-    const int min_overlap = K.min_overlap[t], min_sa = K.min_sa[t];
-    const int max_indel = K.max_indel[t];
-    int code = S.code[g];
-    const int cur_len = S.cur_len[g];
-    const int res_count = S.res_count[g];
 
     // while-condition on the state left by the last step
-    int n_alive = 0;
-    for (int l = 0; l < L; ++l) n_alive += alive[l];
+    const int n_alive = __popc(alive);
     const bool cond_ok = n_alive > 0 && n_alive <= cf.MAXLEAVES && cur_len <= max_length;
-    const bool gap_go = S.active[g] && code == 0;
+    const bool gap_go = active && code == 0;
     if (gap_go && !cond_ok) {
       if (res_count > 0) code = 1;
       else if (n_alive == 0) code = -1;
       else if (cur_len > max_length) code = -2;
       else code = -3;
     }
-    if (!(gap_go && cond_ok)) {
-      S.code[g] = code;
-      return;
-    }
+    if (!(gap_go && cond_ok)) return;
+
+    const bool mine = lane < L;
+    const bool alive_l = mine && ((alive >> lane) & 1);
+    const int* me = mine ? cur(lane) : nullptr;
 
     // slab escape: the slot-0 interval of every live leaf spans <= SB blocks
     if (cf.SLAB) {
       bool bad = false;
-      for (int l = 0; l < L; ++l) {
-        if (!alive[l]) continue;
+      if (alive_l) {
+        const int* ch = me + kScal;
         bool ok = true;
         for (int side = 0; side < 2; ++side) {
-          const int lo0 = chain_at(l, 2 * side, 0), hi0 = chain_at(l, 2 * side + 1, 0);
-          if (lo0 <= hi0 &&
-              floordiv(hi0 + 1, kBlock) - floordiv(lo0, kBlock) + 1 > cf.SB)
+          const int lo0 = ch[2 * side * NC], hi0 = ch[(2 * side + 1) * NC];
+          if (lo0 <= hi0 && floordiv(hi0 + 1, kBlock) - floordiv(lo0, kBlock) + 1 > cf.SB)
             ok = false;
         }
-        const bool inv_f = S.f_lo[gl + l] <= S.f_hi[gl + l] && chain_at(l, 0, 0) > chain_at(l, 1, 0);
-        const bool inv_r = S.r_lo[gl + l] <= S.r_hi[gl + l] && chain_at(l, 2, 0) > chain_at(l, 3, 0);
-        bad |= !ok || inv_f || inv_r;
+        const bool inv_f = me[F_FLO] <= me[F_FHI] && ch[0] > ch[NC];
+        const bool inv_r = me[F_RLO] <= me[F_RHI] && ch[2 * NC] > ch[3 * NC];
+        bad = !ok || inv_f || inv_r;
       }
-      if (bad) {
-        S.code[g] = -300;
+      if (__any_sync(kFull, bad)) {
+        code = -300;
         return;
       }
     }
 
     // extendLeaves: the optional kmer-size clamp refine
-    const int cur_k = S.cur_k[g];
     const bool need_ref0 = cur_k > max_overlap;
     const int jmo = clampi(max_overlap - CK, 0, NC - 1);
-    int lf[LM][4];
-    for (int l = 0; l < L; ++l) {
-      const bool sel = need_ref0 && alive[l];
-      lf[l][0] = sel ? chain_at(l, 0, jmo) : S.f_lo[gl + l];
-      lf[l][1] = sel ? chain_at(l, 1, jmo) : S.f_hi[gl + l];
-      lf[l][2] = sel ? chain_at(l, 2, jmo) : S.r_lo[gl + l];
-      lf[l][3] = sel ? chain_at(l, 3, jmo) : S.r_hi[gl + l];
-    }
     const int cur_k0 = need_ref0 ? max_overlap : cur_k;
 
     // attempToExtend: erase relatively bad leaves, retry eligibility
-    float ev[LM];
-    float min_err = 2.0f;
-    for (int l = 0; l < L; ++l) {
-      ev[l] = alive[l] ? S.local_err[gl + l] : 2.0f;
-      if (ev[l] < min_err) min_err = ev[l];
+    const float le = mine ? __int_as_float(me[F_LERR]) : 2.0f;
+    const float ev = alive_l ? le : 2.0f;
+    const float min_err = warp_min(ev);
+    bool erase = false;
+    if (alive_l) {
+      const float diff = __fsub_rn(le, min_err);
+      erase = (diff > 0.05f && cur_len > cf.RING / 2) || (diff > 0.1f && cur_len > 15);
     }
-    bool alive1[LM], retry_ok[LM], tie_leaf[LM], is_min[LM];
-    int leaf_cnt = 0, n_min_alive = 0;
-    for (int l = 0; l < L; ++l) {
-      const float diff = __fsub_rn(S.local_err[gl + l], min_err);
-      const bool erase = alive[l] && ((diff > 0.05f && cur_len > cf.RING / 2) ||
-                                      (diff > 0.1f && cur_len > 15));
-      alive1[l] = alive[l] && !erase;
-      leaf_cnt += alive1[l];
-      is_min[l] = ev[l] == min_err;
-      n_min_alive += is_min[l] && alive[l];
-    }
-    for (int l = 0; l < L; ++l) {
-      retry_ok[l] = is_min[l] && leaf_cnt > 1;
-      tie_leaf[l] = retry_ok[l] && n_min_alive > 1;
-    }
-    int cand5[4 * LM], tailc[LM];
-    for (int l = 0; l < L; ++l) {
-      tailc[l] = S.tail_count[gl + l];
-      for (int b = 0; b < 4; ++b)
-        cand5[l * 4 + b] = (((S.tail9[gl + l] << 3) | (b + 1)) & ((1 << 27) - 1)) &
-                           ((1 << 15) - 1);
+    const unsigned alive1 = __ballot_sync(kFull, alive_l && !erase);
+    const unsigned is_min = __ballot_sync(kFull, mine && ev == min_err);
+    const unsigned retry = __popc(alive1) > 1 ? is_min : 0u;
+    const unsigned tie = __popc(is_min & alive) > 1 ? retry : 0u;
+
+    // ismatchedbykmer (:787-821) of every candidate's 5-suffix, one scan
+    // of the query window: bit c = the window holds it
+    unsigned m5w[NW];
+#pragma unroll
+    for (int k = 0; k < NW; ++k) m5w[k] = 0;
+    {
+      const int lo = max(cur_len - max_indel, 0), hi = min(cur_len + max_indel, cf.QMAX - 1);
+      const int* row = K.qcode5 + (size_t)t * cf.QMAX;
+      for (int p = lo + lane; p <= hi; p += 32) {
+        const int q = __ldg(row + p), b = (q & 7) - 1;
+        if (q < 0 || b < 0 || b > 3) continue;
+        for (unsigned m = alive1; m; m &= m - 1) {
+          const int l = __ffs(m) - 1, c = 4 * l + b;
+          if ((q >> 3) != (cur(l)[F_T9] & 0xFFF)) continue;
+#pragma unroll
+          for (int k = 0; k < NW; ++k)
+            if (k == (c >> 5)) m5w[k] |= 1u << (c & 31);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < NW; ++k) m5w[k] = __reduce_or_sync(kFull, m5w[k]);
     }
 
     // level 0
-    int p0[LM][4][4], q0[LM][4];
-    const int j0 = clampi(cur_k0 - CK, 0, NC - 1);
-    for (int l = 0; l < L; ++l) {
-      if (cf.SLAB)
-        probe4(ix, chain_at(l, 0, j0), chain_at(l, 1, j0), chain_at(l, 2, j0),
-               chain_at(l, 3, j0), p0[l], q0[l]);
-      else
-        probe4(ix, lf[l][0], lf[l][1], lf[l][2], lf[l][3], p0[l], q0[l]);
-    }
-    bool extA[LM][4], mt1[LM][4], m5[LM][4];
-    int tot[LM], mx[LM];
-    const bool hazA = attempt(p0, q0, min_sa, alive1, retry_ok, tie_leaf, tailc,
-                              cand5, cur_len, max_indel, extA, mt1, m5, tot, mx);
-    bool gapA = false;
-    for (int l = 0; l < L; ++l)
-      for (int b = 0; b < 4; ++b) gapA |= extA[l][b];
+    probe(alive1, C_P0, cf.SLAB ? clampi(cur_k0 - CK, 0, NC - 1) : -1, need_ref0, jmo);
+    unsigned extA[NW], unused[NW];
+    bool hazA, haz_unused;
+    attempt(C_P0, alive1, retry, tie, m5w, false, extA, unused, hazA, haz_unused);
+    const bool gapA = count(extA) > 0;
 
     // level 1 (k reduce) + level 2 (threshold relax), only when needed
     const bool need_l1 = !gapA;
-    int p1[LM][4][4], q1[LM][4];
-    bool extB[LM][4], extC[LM][4];
+    unsigned extB[NW], extC[NW];
     bool gapB = false, gapC = false, hazBC = false;
     int reduce_size = cur_k0;
     if (need_l1) {
       const int lower = max(cur_k0 - 2, min_overlap);
-      int f3[3][LM];
+      int maxf[3];
+#pragma unroll
       for (int i = 0; i < 3; ++i) {
         const int j = clampi(lower + i - CK, 0, NC - 1);
-        for (int l = 0; l < L; ++l)
-          f3[i][l] = isize(chain_at(l, 0, j), chain_at(l, 1, j)) +
-                     isize(chain_at(l, 2, j), chain_at(l, 3, j));
-      }
-      reduce_size = select_freqs(K, f3[0], f3[1], f3[2], alive1, L, lower, cur_k0);
-      const int j1 = clampi(reduce_size - CK, 0, NC - 1);
-      for (int l = 0; l < L; ++l)
-        probe4(ix, chain_at(l, 0, j1), chain_at(l, 1, j1), chain_at(l, 2, j1),
-               chain_at(l, 3, j1), p1[l], q1[l]);
-      const bool hazB = attempt(p1, q1, min_sa, alive1, retry_ok, tie_leaf, tailc,
-                                cand5, cur_len, max_indel, extB, mt1, m5, tot, mx);
-      bool hazC = false;
-      for (int l = 0; l < L; ++l) {
-        bool mt2[4], any_1 = false, any_2 = false;
-        for (int b = 0; b < 4; ++b) {
-          mt2[b] = cutoff(q1[l][b], tot[l], mx[l], m5[l][b], tailc[l], min_sa - 2);
-          any_1 |= mt1[l][b];
-          any_2 |= mt2[b];
+        int v = 0;
+        if (mine && ((alive1 >> lane) & 1)) {
+          const int* ch = me + kScal;
+          v = isize(ch[j], ch[NC + j]) + isize(ch[2 * NC + j], ch[3 * NC + j]);
         }
-        for (int b = 0; b < 4; ++b) {
-          extC[l][b] = alive1[l] && (any_1 ? mt1[l][b] : (retry_ok[l] && mt2[b]));
-          gapB |= extB[l][b];
-          gapC |= extC[l][b];
-        }
-        hazC |= tie_leaf[l] && alive1[l] && !any_1 && any_2;
+        maxf[i] = warp_max(v);
       }
-      gapC = gapC && !gapB;
+      reduce_size = select_freqs(K, maxf, lower, cur_k0);
+      probe(alive1, C_P1, clampi(reduce_size - CK, 0, NC - 1), false, 0);
+      bool hazB, hazC;
+      attempt(C_P1, alive1, retry, tie, m5w, true, extB, extC, hazB, hazC);
+      gapB = count(extB) > 0;
+      gapC = count(extC) > 0 && !gapB;
       hazBC = hazB || hazC;
     }
     const bool use_l1 = need_l1 && (gapB || gapC);
 
     // candidates c = 4 * parent + (base - 1)
-    int c_flo[4 * LM], c_fhi[4 * LM], c_rlo[4 * LM], c_rhi[4 * LM], c_freq[4 * LM];
-    bool cand[4 * LM];
-    bool success = false;
-    for (int l = 0; l < L; ++l)
-      for (int b = 0; b < 4; ++b) {
-        const int c = l * 4 + b;
-        const bool e = gapA ? extA[l][b] : gapB ? extB[l][b] : gapC ? extC[l][b] : false;
-        cand[c] = e;
-        success |= e;
-        c_flo[c] = use_l1 ? p1[l][0][b] : p0[l][0][b];
-        c_fhi[c] = use_l1 ? p1[l][1][b] : p0[l][1][b];
-        c_rlo[c] = use_l1 ? p1[l][2][b] : p0[l][2][b];
-        c_rhi[c] = use_l1 ? p1[l][3][b] : p0[l][3][b];
-        c_freq[c] = use_l1 ? q1[l][b] : q0[l][b];
+    unsigned cand[NW];
+#pragma unroll
+    for (int k = 0; k < NW; ++k) cand[k] = gapA ? extA[k] : gapB ? extB[k] : gapC ? extC[k] : 0u;
+    const int n_new = count(cand);
+    const bool success = n_new > 0;
+    const int po = use_l1 ? C_P1 : C_P0;
+    int high_cnt = 0;
+#pragma unroll
+    for (int r = 0; r < NW; ++r) {
+      const int c = 32 * r + lane;
+      bool high = false;
+      if (c < C && ((cand[r] >> lane) & 1)) {
+        int* X = cnd(c);
+        for (int q = 0; q < 5; ++q) X[C_CI + q] = X[po + q];
+        high = X[C_CI + 4] > min_sa;
       }
+      high_cnt += __popc(__ballot_sync(kFull, high));
+    }
+    __syncwarp();
     const int cur_k_base = use_l1 ? reduce_size : cur_k0;
     const int cur_len_new = success ? cur_len + 1 : cur_len;
     int cur_k_new = success ? cur_k_base + 1 : cur_k_base;
 
     // isInsufficientFreqs -> reduce + refine the candidates
-    int high_cnt = 0, n_new = 0;
-    for (int c = 0; c < C; ++c) {
-      high_cnt += cand[c] && c_freq[c] > min_sa;
-      n_new += cand[c];
-    }
     const bool insuff = high_cnt == 0 || (high_cnt <= 2 && n_new >= 5) ||
                         (high_cnt <= 1 && n_new >= 3);
     if (success && insuff) {
       const int lower2 = max(cur_k_new - 2, min_overlap);
-      int e3[3][4][4 * LM], fr3[3][4 * LM];
-      for (int i = 0; i < 3; ++i) {
-        const int j = clampi(lower2 + i - 1 - CK, 0, NC - 1);
-        for (int c = 0; c < C; ++c) {
-          fr3[i][c] = 0;
-          if (!cand[c]) continue;
-          const int l = c >> 2, ch = (c & 3) + 1;
-          int a = chain_at(l, 0, j), z = chain_at(l, 1, j);
-          int u = chain_at(l, 2, j), w = chain_at(l, 3, j);
-          const bool fv = a <= z, rv = u <= w;
-          if (!cf.SLAB || fv) lf_f(ix, ch, a, z);
-          if (!cf.SLAB || rv) lf_r(ix, comp(ch), u, w);
-          e3[i][0][c] = a;
-          e3[i][1][c] = z;
-          e3[i][2][c] = u;
-          e3[i][3][c] = w;
-          fr3[i][c] = isize(a, z) + isize(u, w);
+      for (int i = lane; i < 6 * n_new; i += 32) {
+        const int c = nth(cand, i / 6), lvl = (i % 6) >> 1, side = i & 1;
+        const int j = clampi(lower2 + lvl - 1 - CK, 0, NC - 1);
+        const int* ch = cur(c >> 2) + kScal;
+        int lo = ch[2 * side * NC + j], hi = ch[(2 * side + 1) * NC + j];
+        if (!cf.SLAB || lo <= hi) lf_side(ix, side, (c & 3) + 1, lo, hi);
+        int* E = cnd(c) + 4 * lvl;
+        E[2 * side] = lo;
+        E[2 * side + 1] = hi;
+      }
+      __syncwarp();
+      int maxf[3];
+#pragma unroll
+      for (int lvl = 0; lvl < 3; ++lvl) {
+        int v = 0;
+#pragma unroll
+        for (int r = 0; r < NW; ++r) {
+          const int c = 32 * r + lane;
+          if (c < C && ((cand[r] >> lane) & 1)) {
+            const int* E = cnd(c) + 4 * lvl;
+            v = max(v, isize(E[0], E[1]) + isize(E[2], E[3]));
+          }
+        }
+        maxf[lvl] = warp_max(v);
+      }
+      const int rs2 = select_freqs(K, maxf, lower2, cur_k_new);
+      const int pick = rs2 - lower2;
+      const bool in = pick >= 0 && pick < 3;
+#pragma unroll
+      for (int r = 0; r < NW; ++r) {
+        const int c = 32 * r + lane;
+        if (c < C && ((cand[r] >> lane) & 1)) {
+          int* X = cnd(c);
+          for (int q = 0; q < 4; ++q) X[C_CI + q] = in ? X[4 * pick + q] : 0;
         }
       }
-      const int rs2 = select_freqs(K, fr3[0], fr3[1], fr3[2], cand, C, lower2, cur_k_new);
-      const int pick = rs2 - lower2;
-      for (int c = 0; c < C; ++c) {
-        if (!cand[c]) continue;
-        const bool in = pick >= 0 && pick < 3;
-        c_flo[c] = in ? e3[pick][0][c] : 0;
-        c_fhi[c] = in ? e3[pick][1][c] : 0;
-        c_rlo[c] = in ? e3[pick][2][c] : 0;
-        c_rhi[c] = in ? e3[pick][3][c] : 0;
-      }
       cur_k_new = rs2;
+      __syncwarp();
     }
 
     // PrunedBySeedSupport + computeErrorRate + isTerminated, per candidate
     const int curr_seed_idx = cur_len_new - SS;
     const int indel_off = SS + max_indel;
     const int small_idx = curr_seed_idx <= indel_off ? 0 : curr_seed_idx - indel_off;
-    const int large_idx = min(curr_seed_idx + indel_off, K.q_len[t] - SS);
-    const int n_app = S.gerr_n[g] + 1;
+    const int large_idx = min(curr_seed_idx + indel_off, q_len - SS);
+    const int n_app = gerr_n + 1;
     const int slot_w = floormod(n_app - 1, cf.RING), slot_r = floormod(n_app, cf.RING);
     const float pe = *K.pacbio_e, eb = *K.err_bound;
-    const bool may_term = success && !K.no_term[t] && cur_len_new >= K.min_length[t];
-    const int* q9 = K.qcode9 + (size_t)t * cf.QMAX;
-    const int n_term = K.n_term[t];
-
-    int c_last_seed[4 * LM], c_last_ovl[4 * LM], c_total_seeds[4 * LM],
-        c_num_err[4 * LM], c_sio[4 * LM], c_red_a[4 * LM], c_red_b[4 * LM],
-        c_qovl[4 * LM], c_covl[4 * LM], c_rf[4 * LM], c_rs[4 * LM], imax[4 * LM];
-    float gerr[4 * LM], local[4 * LM];
-    bool surv[4 * LM], t_found[4 * LM];
-    int n_surv = 0, n_newres = 0, slot[4 * LM];
-    bool any_over = false;
-    for (int c = 0; c < C; ++c) {
-      surv[c] = t_found[c] = false;
-      slot[c] = -1;
-      if (!cand[c]) continue;
-      const size_t p = gl + (c >> 2);
-      c_last_seed[c] = S.last_seed_idx[p];
-      c_last_ovl[c] = S.last_overlap_len[p];
-      c_total_seeds[c] = S.total_seeds[p];
-      c_num_err[c] = S.num_errors[p];
-      c_sio[c] = S.seed_idx_offset[p];
-      c_red_a[c] = S.red_a[p];
-      c_red_b[c] = S.red_b[p];
-      c_qovl[c] = S.query_overlap_len[p] + 1;
-      c_covl[c] = S.curr_overlap_len[p] + 1;
-      c_rf[c] = S.res_first[p];
-      c_rs[c] = S.res_second[p];
-
-      const int gap_len = cur_len_new - c_last_ovl[c];
-      const bool do_match = gap_len > SS || gap_len <= 1;
-      const int sio_q = c_last_ovl[c] < cur_len_new - SS ? SS : cur_len_new - c_last_ovl[c];
-      const int start_idx = max(small_idx, c_last_seed[c] + sio_q);
-      const bool c_valid = c_flo[c] <= c_fhi[c] || c_rlo[c] <= c_rhi[c];
-      const int code9 = ((S.tail9[p] << 3) | ((c & 3) + 1)) & ((1 << 27) - 1);
-      bool found = false;
-      int best_pos = 0, best_diff = 0;
-      if (do_match && c_valid) {
-        for (int pos = max(start_idx, 0); pos <= min(large_idx, cf.QMAX - 1); ++pos) {
-          const int q = q9[pos];
-          if (q < 0 || q != code9) continue;
-          const int diff = abs(pos - curr_seed_idx);
-          if (!found || diff < best_diff) {
-            found = true;
-            best_diff = diff;
-            best_pos = pos;
-          }
+    const bool may_term = success && !no_term && cur_len_new >= min_length;
+    // the parents of the candidates, as a leaf mask (round r holds the
+    // candidates of leaves 8r..8r+7)
+    unsigned cand_leaves = 0;
+#pragma unroll
+    for (int r = 0; r < NW; ++r) {
+      const int c = 32 * r + lane;
+      if (c < C && ((cand[r] >> lane) & 1)) {
+        cnd(c)[C_KEY] = -1;  // no match: the largest key
+        cnd(c)[C_IMAX] = -1;
+      }
+      for (int x = 0; x < 8; ++x)
+        if ((cand[r] >> (4 * x)) & 0xF) cand_leaves |= 1u << (8 * r + x);
+    }
+    for (int r = lane; r < cf.RMAX; r += 32) src()[r] = -1;
+    __syncwarp();
+    // the seed matches: one scan of the query window, each hit keyed
+    // (|pos - currSeedIdx|, pos) into its candidate's least key
+    {
+      const int* q9 = K.qcode9 + (size_t)t * cf.QMAX;
+      const int hi = min(large_idx, cf.QMAX - 1);
+      for (int p = max(small_idx, 0) + lane; p <= hi; p += 32) {
+        const int q = __ldg(q9 + p), b = (q & 7) - 1;
+        if (q < 0 || b < 0 || b > 3) continue;
+        for (unsigned m = cand_leaves; m; m &= m - 1) {
+          const int l = __ffs(m) - 1, c = 4 * l + b;
+          if (!bit(cand, c)) continue;
+          const int* r = cur(l);
+          const int last_ovl = r[F_LOVL], gap_len = cur_len_new - last_ovl;
+          if (!(gap_len > SS || gap_len <= 1)) continue;
+          const int sio_q = last_ovl < cur_len_new - SS ? SS : cur_len_new - last_ovl;
+          if (p < r[F_LSEED] + sio_q) continue;
+          const int* X = cnd(c) + C_CI;
+          if (!(X[0] <= X[1] || X[2] <= X[3])) continue;
+          if ((q >> 3) != (r[F_T9] & 0xFFFFFF)) continue;
+          const unsigned key = ((unsigned)abs(p - curr_seed_idx) << 16) | (unsigned)p;
+          atomicMin(reinterpret_cast<unsigned*>(cnd(c) + C_KEY), key);
         }
       }
-      const int v = curr_seed_idx + c_sio[c] - c_last_seed[c];
-      if (found && v > SS) c_red_b[c] += 1;
-      if (do_match && !found) {
-        if (floormod(v, SS) == 1) c_num_err[c] += 1;
-        else if (v > SS - 1) c_red_a[c] += 1;
+    }
+    __syncwarp();
+    unsigned surv[NW];
+#pragma unroll
+    for (int r = 0; r < NW; ++r) {
+      const int c = 32 * r + lane;
+      bool s = false;
+      if (c < C && ((cand[r] >> lane) & 1)) {
+        const int* P = cur(c >> 2);
+        int* X = cnd(c);
+        int last_seed = P[F_LSEED], last_ovl = P[F_LOVL], total_seeds = P[F_TSEEDS];
+        int num_err = P[F_NERR], sio = P[F_SIO], red_a = P[F_REDA], red_b = P[F_REDB];
+        int qovl = P[F_QOVL] + 1, covl = P[F_COVL] + 1;
+        const int gap_len = cur_len_new - last_ovl;
+        const bool do_match = gap_len > SS || gap_len <= 1;
+        const unsigned key = (unsigned)X[C_KEY];
+        const bool found = key != 0xffffffffu;
+        const int best_pos = (int)(key & 0xffffu);
+        const int v = curr_seed_idx + sio - last_seed;
+        if (found && v > SS) red_b += 1;
+        if (do_match && !found) {
+          if (floormod(v, SS) == 1) num_err += 1;
+          else if (v > SS - 1) red_a += 1;
+        }
+        if (!do_match) red_a += 1;
+        if (found) {
+          sio = best_pos - curr_seed_idx;
+          last_seed = best_pos;
+          qovl = best_pos + SS;
+          last_ovl = cur_len_new;
+          covl = cur_len_new;
+          total_seeds += 1;
+        }
+        const int U = covl - total_seeds - (SS - 1) - red_a;
+        const int V = red_a - (SS - 1) * red_b;
+        const float total = (float)covl;
+        const float gerr = __fdiv_rn(__fmaf_rn((float)V, pe, (float)U), total);
+        float local = gerr;
+        if (n_app >= cf.RING) {
+          const float old = ring(P)[slot_r];
+          const float sub = __fmul_rn(old, __fsub_rn(total, (float)cf.RING));
+          local = __fmul_rn(__fmaf_rn(gerr, total, -sub), __fdiv_rn(1.0f, (float)cf.RING));
+        }
+        s = !(local > eb);
+        X[N_LSEED] = last_seed;
+        X[N_LOVL] = last_ovl;
+        X[N_TSEEDS] = total_seeds;
+        X[N_COVL] = covl;
+        X[N_NERR] = num_err;
+        X[N_SIO] = sio;
+        X[N_QOVL] = qovl;
+        X[N_REDA] = red_a;
+        X[N_REDB] = red_b;
+        X[N_RF] = P[F_RF];
+        X[N_RS] = P[F_RS];
+        X[N_GERR] = __float_as_int(gerr);
+        X[N_LOCAL] = __float_as_int(local);
       }
-      if (!do_match) c_red_a[c] += 1;
-      if (found) {
-        c_sio[c] = best_pos - curr_seed_idx;
-        c_last_seed[c] = best_pos;
-        c_qovl[c] = best_pos + SS;
-        c_last_ovl[c] = cur_len_new;
-        c_covl[c] = cur_len_new;
-        c_total_seeds[c] += 1;
-      }
-      const int U = c_covl[c] - c_total_seeds[c] - (SS - 1) - c_red_a[c];
-      const int V = c_red_a[c] - (SS - 1) * c_red_b[c];
-      const float total = (float)c_covl[c];
-      gerr[c] = __fdiv_rn(__fmaf_rn((float)V, pe, (float)U), total);
-      if (n_app >= cf.RING) {
-        const float old = S.ring[p * cf.RING + slot_r];
-        const float sub = __fmul_rn(old, __fsub_rn(total, (float)cf.RING));
-        local[c] = __fmul_rn(__fmaf_rn(gerr[c], total, -sub),
-                             __fdiv_rn(1.0f, (float)cf.RING));
-      } else {
-        local[c] = gerr[c];
-      }
-      surv[c] = !(local[c] > eb);
-      n_surv += surv[c];
-      if (!surv[c] || !may_term) continue;
+      surv[r] = __ballot_sync(kFull, s);
+    }
+    const int n_surv = count(surv);
+    __syncwarp();
 
-      // isTerminated: containment in a terminal interval, window >= startt
-      imax[c] = -1;
-      const bool fv = c_flo[c] <= c_fhi[c], rv = c_rlo[c] <= c_rhi[c];
+    // isTerminated: containment in a terminal interval, window >= startt;
+    // thread = window, the last window per candidate by atomicMax
+    if (may_term) {
+      const int nt = min(n_term, cf.TMAX);
       const int* tf = K.term_f + (size_t)t * cf.TMAX * 2;
       const int* tr = K.term_r + (size_t)t * cf.TMAX * 2;
-      for (int ti = max(c_rs[c], 0); ti < min(n_term, cf.TMAX); ++ti) {
-        const bool cf_ = fv && c_flo[c] >= tf[2 * ti] && c_fhi[c] <= tf[2 * ti + 1];
-        const bool cr_ = rv && c_rlo[c] >= tr[2 * ti] && c_rhi[c] <= tr[2 * ti + 1];
-        if (cf_ || cr_) imax[c] = ti;
+      for (int ti = lane; ti < nt; ti += 32) {
+        const int f0 = __ldg(tf + 2 * ti), f1 = __ldg(tf + 2 * ti + 1);
+        const int r0 = __ldg(tr + 2 * ti), r1 = __ldg(tr + 2 * ti + 1);
+        for (int k = 0; k < n_surv; ++k) {
+          int* X = cnd(nth(surv, k));
+          if (ti < max(X[N_RS], 0)) continue;
+          const int* I = X + C_CI;
+          const bool cf_ = I[0] <= I[1] && I[0] >= f0 && I[1] <= f1;
+          const bool cr_ = I[2] <= I[3] && I[2] >= r0 && I[3] <= r1;
+          if (cf_ || cr_) atomicMax(X + C_IMAX, ti);
+        }
       }
-      t_found[c] = imax[c] >= 0;
-      if (!t_found[c]) continue;
-      if (c_rf[c] == -1) {
-        n_newres += 1;
-        slot[c] = res_count + n_newres - 1;
-      } else {
-        slot[c] = c_rf[c] - 1;
-      }
-      any_over |= slot[c] >= cf.RMAX;
+      __syncwarp();
     }
 
-    // result slots: the last writer (largest candidate) wins
-    const size_t gr = (size_t)g * cf.RMAX;
-    int src[64];
-    for (int r = 0; r < cf.RMAX; ++r) src[r] = -1;
-    for (int c = 0; c < C; ++c) {
-      if (!t_found[c]) continue;
-      if (slot[c] >= 0 && slot[c] < cf.RMAX) src[slot[c]] = c;
-      if (c_rf[c] == -1) c_rf[c] = slot[c] + 1;
-      c_rs[c] = imax[c];
+    // result slots: new ones in candidate order, the last writer (largest
+    // candidate) of each slot wins
+    int n_newres = 0;
+    bool any_over = false;
+    const unsigned lt = (1u << lane) - 1u;
+#pragma unroll
+    for (int r = 0; r < NW; ++r) {
+      const int c = 32 * r + lane;
+      int* X = cnd(c);
+      const bool tf = may_term && ((surv[r] >> lane) & 1) && X[C_IMAX] >= 0;
+      const bool fresh = tf && X[N_RF] == -1;
+      const unsigned w = __ballot_sync(kFull, fresh);
+      const int slot = fresh ? res_count + n_newres + __popc(w & lt) : (tf ? X[N_RF] - 1 : -1);
+      n_newres += __popc(w);
+      any_over |= __any_sync(kFull, tf && slot >= cf.RMAX);
+      if (tf) {
+        if (slot >= 0 && slot < cf.RMAX) atomicMax(src() + slot, c);
+        if (X[N_RF] == -1) X[N_RF] = slot + 1;
+        X[N_RS] = X[C_IMAX];
+      }
     }
-    const int8_t* labels = S.labels + gl * cf.MAXLEN;
-    for (int r = 0; r < cf.RMAX; ++r) {
-      const int c = src[r];
+    __syncwarp();
+    for (int r = lane; r < cf.RMAX; r += 32) {
+      const int c = src()[r];
       if (c < 0) continue;
-      int8_t* dst = S.res_labels + (gr + r) * cf.MAXLEN;
-      const int8_t* from = labels + (size_t)(c >> 2) * cf.MAXLEN;
-      for (int m = 0; m < cur_len_new - 1; ++m) dst[m] = from[m];
-      if (cur_len_new - 1 < cf.MAXLEN) dst[cur_len_new - 1] = (int8_t)((c & 3) + 1);
-      S.res_len[gr + r] = cur_len_new;
-      S.res_err[gr + r] = gerr[c];
-      S.res_i[gr + r] = imax[c];
+      const int* X = cnd(c);
+      res_len()[r] = cur_len_new;
+      res_err()[r] = __int_as_float(X[N_GERR]);
+      res_i()[r] = X[C_IMAX];
+      res_ref()[r] = (cur_len_new << 16) | ((c >> 2) << 8) | ((c & 3) + 1);
     }
     const bool fp_hazard = hazA || (hazBC && need_l1);
     const int res_count_new = res_count + n_newres;
 
-    // compact survivors into leaf slots, in candidate order; the new
-    // leaves' labels, rings and chains go to scratch first
+    // compact survivors into leaf slots, in candidate order
     const int nleaf = min(n_surv, L);
-    int lsrc[LM];
-    for (int c = 0, k = 0; c < C && k < nleaf; ++c)
-      if (surv[c]) lsrc[k++] = c;
-    int8_t* lab_tmp = reinterpret_cast<int8_t*>(scratch);
-    float* ring_tmp = reinterpret_cast<float*>(scratch + (L * cf.MAXLEN + 3) / 4);
-    int* chain_tmp = scratch + (L * cf.MAXLEN + 3) / 4 + L * cf.RING;
+    {
+      int before = 0;
+#pragma unroll
+      for (int r = 0; r < NW; ++r) {
+        const int k = before + __popc(surv[r] & lt);
+        if (((surv[r] >> lane) & 1) && k < L) lsrc()[k] = 32 * r + lane;
+        before += __popc(surv[r]);
+      }
+    }
+    __syncwarp();
+
+    // the new leaves, each into its slot's other record: the scalars and
+    // the label position (thread = leaf), the chain ring (thread = leaf,
+    // level, side: slot j >= 1 = parent slot j-1 extended by the leaf's
+    // char, slot 0 from the ck-mer cache of the new tail), the error ring
     const int ckmask = (1 << (2 * CK)) - 1;
-    int new_tail8[LM];
-    for (int l = 0; l < nleaf; ++l) {
-      const int c = lsrc[l], p = c >> 2, ch = (c & 3) + 1;
-      const int8_t* from = labels + (size_t)p * cf.MAXLEN;
-      int8_t* to = lab_tmp + (size_t)l * cf.MAXLEN;
-      for (int m = 0; m < cur_len_new - 1; ++m) to[m] = from[m];
-      to[cur_len_new - 1] = (int8_t)ch;
-      const float* rf = S.ring + (gl + p) * cf.RING;
-      float* rt = ring_tmp + (size_t)l * cf.RING;
-      for (int m = 0; m < cf.RING; ++m) rt[m] = rf[m];
-      rt[slot_w] = gerr[c];
-      // chain: slot j >= 1 = parent slot j-1 extended by ch; slot 0 from
-      // the ck-mer cache of the new tail
-      new_tail8[l] = ((S.tail8[gl + p] << 2) | (ch - 1)) & ckmask;
-      int* ct = chain_tmp + (size_t)l * 4 * NC;
-      int w4[4];
-      wcache_get(ix, new_tail8[l], w4);
-      for (int q = 0; q < 4; ++q) ct[q * NC] = w4[q];
-      for (int j = 1; j < NC; ++j) {
-        int a = chain_at(p, 0, j - 1), z = chain_at(p, 1, j - 1);
-        int u = chain_at(p, 2, j - 1), w = chain_at(p, 3, j - 1);
+    if (lane < nleaf) {
+      const int c = lsrc()[lane], ch = (c & 3) + 1;
+      const int* P = cur(c >> 2);
+      const int* X = cnd(c);
+      int* D = nxt(lane);
+      for (int q = 0; q < 5; ++q) D[F_FLO + q] = X[C_CI + q];
+      D[F_TOTK] = P[F_TOTK] + X[C_CI + 4];
+      D[F_LSEED] = X[N_LSEED];
+      D[F_LOVL] = X[N_LOVL];
+      D[F_TSEEDS] = X[N_TSEEDS];
+      D[F_COVL] = X[N_COVL];
+      D[F_NERR] = X[N_NERR];
+      D[F_SIO] = X[N_SIO];
+      D[F_QOVL] = X[N_QOVL];
+      D[F_REDA] = X[N_REDA];
+      D[F_REDB] = X[N_REDB];
+      D[F_RF] = X[N_RF];
+      D[F_RS] = X[N_RS];
+      D[F_TLET] = ch;
+      D[F_TCNT] = P[F_TLET] == ch ? P[F_TCNT] + 1 : 1;
+      D[F_T9] = ((P[F_T9] << 3) | ch) & ((1 << 27) - 1);
+      D[F_T8] = ((P[F_T8] << 2) | (ch - 1)) & ckmask;
+      D[F_LERR] = X[N_LOCAL];
+      D[F_GLAST] = X[N_GERR];
+      D[F_LEN] = cur_len_new;
+      if (cur_len_new - 1 < cf.MAXLEN)
+        hist()[(cur_len_new - 1) * L + lane] = (uint8_t)(ch | ((c >> 2) << 3));
+    }
+    for (int i = lane; i < nleaf * 2 * NC; i += 32) {
+      const int l = i / (2 * NC), j = (i % (2 * NC)) >> 1, side = i & 1;
+      const int c = lsrc()[l], ch = (c & 3) + 1;
+      const int* P = cur(c >> 2);
+      int a, z;
+      if (j == 0) {
+        const int code8 = ((P[F_T8] << 2) | (ch - 1)) & ckmask;
+        a = __ldg(ix.wcache + (size_t)code8 * 4 + 2 * side);
+        z = __ldg(ix.wcache + (size_t)code8 * 4 + 2 * side + 1);
+      } else {
+        a = P[kScal + 2 * side * NC + j - 1];
+        z = P[kScal + (2 * side + 1) * NC + j - 1];
         if (cf.SLAB && a > z) {
           a = 0;
           z = -1;
         } else {
-          lf_f(ix, ch, a, z);
+          lf_side(ix, side, ch, a, z);
         }
-        if (cf.SLAB && u > w) {
-          u = 0;
-          w = -1;
-        } else {
-          lf_r(ix, comp(ch), u, w);
-        }
-        ct[j] = a;
-        ct[NC + j] = z;
-        ct[2 * NC + j] = u;
-        ct[3 * NC + j] = w;
       }
+      int* D = nxt(l) + kScal;
+      D[2 * side * NC + j] = a;
+      D[(2 * side + 1) * NC + j] = z;
     }
-    // per-leaf scalars of the new leaves (read from the parents first)
-    int nl[LM][19];
-    for (int l = 0; l < nleaf; ++l) {
-      const int c = lsrc[l], p = c >> 2, ch = (c & 3) + 1;
-      const size_t pp = gl + p;
-      int* v = nl[l];
-      v[0] = c_flo[c];
-      v[1] = c_fhi[c];
-      v[2] = c_rlo[c];
-      v[3] = c_rhi[c];
-      v[4] = c_freq[c];
-      v[5] = S.total_kmer[pp] + c_freq[c];
-      v[6] = c_last_seed[c];
-      v[7] = c_last_ovl[c];
-      v[8] = c_total_seeds[c];
-      v[9] = c_covl[c];
-      v[10] = c_num_err[c];
-      v[11] = c_sio[c];
-      v[12] = c_qovl[c];
-      v[13] = c_red_a[c];
-      v[14] = c_red_b[c];
-      v[15] = c_rf[c];
-      v[16] = c_rs[c];
-      v[17] = (int)S.tail_letter[pp] == ch ? S.tail_count[pp] + 1 : 1;
-      v[18] = ((S.tail9[pp] << 3) | ch) & ((1 << 27) - 1);
+    const int RV = (cf.RING + 3) >> 2;  // float4 vectors of a ring
+    for (int i = lane; i < nleaf * RV; i += 32) {
+      const int l = i / RV, v = i % RV, c = lsrc()[l];
+      float4 x = reinterpret_cast<const float4*>(ring(cur(c >> 2)))[v];
+      if ((slot_w >> 2) == v) {
+        const float g = __int_as_float(cnd(c)[N_GERR]);
+        switch (slot_w & 3) {
+          case 0: x.x = g; break;
+          case 1: x.y = g; break;
+          case 2: x.z = g; break;
+          default: x.w = g;
+        }
+      }
+      reinterpret_cast<float4*>(ring(nxt(l)))[v] = x;
     }
-    for (int l = 0; l < nleaf; ++l) {
-      const int c = lsrc[l];
-      const size_t q = gl + l;
-      const int* v = nl[l];
-      S.f_lo[q] = v[0];
-      S.f_hi[q] = v[1];
-      S.r_lo[q] = v[2];
-      S.r_hi[q] = v[3];
-      S.kmer_freq[q] = v[4];
-      S.total_kmer[q] = v[5];
-      S.last_seed_idx[q] = v[6];
-      S.last_overlap_len[q] = v[7];
-      S.total_seeds[q] = v[8];
-      S.curr_overlap_len[q] = v[9];
-      S.num_errors[q] = v[10];
-      S.seed_idx_offset[q] = v[11];
-      S.query_overlap_len[q] = v[12];
-      S.red_a[q] = v[13];
-      S.red_b[q] = v[14];
-      S.res_first[q] = v[15];
-      S.res_second[q] = v[16];
-      S.tail_letter[q] = (int8_t)((c & 3) + 1);
-      S.tail_count[q] = v[17];
-      S.tail9[q] = v[18];
-      S.tail8[q] = new_tail8[l];
-      S.local_err[q] = local[c];
-      S.gerr_last[q] = gerr[c];
-      int8_t* lab = S.labels + q * cf.MAXLEN;
-      const int8_t* lt = lab_tmp + (size_t)l * cf.MAXLEN;
-      for (int m = 0; m < cur_len_new; ++m) lab[m] = lt[m];
-      float* rg = S.ring + q * cf.RING;
-      const float* rt = ring_tmp + (size_t)l * cf.RING;
-      for (int m = 0; m < cf.RING; ++m) rg[m] = rt[m];
-      int* ch = S.chain + q * 4 * NC;
-      const int* ct = chain_tmp + (size_t)l * 4 * NC;
-      for (int m = 0; m < 4 * NC; ++m) ch[m] = ct[m];
-    }
-    for (int l = 0; l < L; ++l) alive[l] = l < nleaf;
+    __syncwarp();
+    owner ^= low_mask(nleaf);
+    alive = low_mask(nleaf);
 
     // >maxLeaves: the reference's while-condition exit (-3, or 1 with
     // results); n_surv > L below it: re-run in the wide config (-200)
     if (n_surv > cf.MAXLEAVES) code = res_count_new > 0 ? 1 : -3;
     else if (n_surv > L) code = -200;
-    S.code[g] = code;
-    S.cur_len[g] = cur_len_new;
-    S.cur_k[g] = cur_k_new;
-    if (success) S.gerr_n[g] = n_app;
-    S.res_count[g] = res_count_new;
-    S.res_overflow[g] = S.res_overflow[g] || any_over || fp_hazard;
+    cur_len = cur_len_new;
+    cur_k = cur_k_new;
+    if (success) gerr_n = n_app;
+    res_count = res_count_new;
+    overflow = overflow || any_over || fp_hazard;
   }
 
-  // _reduce_results: the first slot with the least error below 1.0
-  __device__ void reduce(const Reduced& R, int out) const {
-    const size_t gr = (size_t)g * cf.RMAX;
-    const int n = min(S.res_count[g], cf.RMAX);
+  // the label of length n whose last position was written into slot l,
+  // from the history, into dst[0, n)
+  __device__ __forceinline__ void label_to(int8_t* dst, int n, int l) const {
+    const uint8_t* h = hist();
+    for (int pos = n - 1; pos >= 0; --pos) {
+      const int x = h[pos * cf.L + l];
+      dst[pos] = (int8_t)(x & 7);
+      l = x >> 3;
+    }
+  }
+  // the label of result ref (length n, parent slot, last char)
+  __device__ __forceinline__ void result_to(int8_t* dst, int ref) const {
+    const int n = ref >> 16;
+    if (n - 1 < cf.MAXLEN) dst[n - 1] = (int8_t)(ref & 0xff);
+    label_to(dst, min(n - 1, cf.MAXLEN), (ref >> 8) & 0xff);
+  }
+
+  // the first slot with the least error below 1.0 (-1: none) among n
+  __device__ __forceinline__ int best_result(const float* err, int n) const {
+    float be = 2.0f;
     int best = -1;
-    float be = 0.0f;
-    for (int r = 0; r < n; ++r) {
-      const float e = S.res_err[gr + r];
-      if (e < 1.0f && (best < 0 || e < be)) {
-        best = r;
-        be = e;
+    for (int base = 0; base < cf.RMAX; base += 32) {
+      const int r = base + lane;
+      const float e = r < n ? err[r] : 2.0f;
+      const float v = e < 1.0f ? e : 2.0f;
+      const float m = warp_min(v);
+      if (m < be) {
+        be = m;
+        best = base + __ffs(__ballot_sync(kFull, v == m)) - 1;
       }
     }
-    const bool has = best >= 0;
-    if (!has) best = 0;
-    R.code[out] = S.code[g];
-    R.overflow[out] = S.res_overflow[g];
-    R.has[out] = has;
-    const int8_t* from = S.res_labels + (gr + best) * cf.MAXLEN;
-    int8_t* to = R.lab + (size_t)out * cf.MAXLEN;
-    for (int m = 0; m < cf.MAXLEN; ++m) to[m] = from[m];
-    R.len[out] = S.res_len[gr + best];
-    R.i[out] = S.res_i[gr + best];
+    return best;
   }
 
-  // _init_state of one used lane from task row t
-  __device__ void seed(const Root& RT) const {
+  // _reduce_results of the lane whose state is in S at row g into R row out
+  __device__ __forceinline__ void reduce_state(const State& S, int g, const Reduced& R, int out) const {
+    const size_t gr = (size_t)g * cf.RMAX;
+    int best = best_result(S.res_err + gr, min(S.res_count[g], cf.RMAX));
+    const bool has = best >= 0;
+    if (!has) best = 0;
+    const int8_t* from = S.res_labels + (gr + best) * cf.MAXLEN;
+    int8_t* to = R.lab + (size_t)out * cf.MAXLEN;
+    for (int m = lane; m < cf.MAXLEN; m += 32) to[m] = from[m];
+    if (lane == 0) {
+      R.code[out] = S.code[g];
+      R.overflow[out] = S.res_overflow[g];
+      R.has[out] = has;
+      R.len[out] = S.res_len[gr + best];
+      R.i[out] = S.res_i[gr + best];
+    }
+  }
+
+  // _reduce_results of the lane in shared memory into R row out (every
+  // result row was all PAD before its label was written)
+  __device__ __forceinline__ void reduce_smem(const Reduced& R, int out) const {
+    int best = best_result(res_err(), min(res_count, cf.RMAX));
+    const bool has = best >= 0;
+    if (!has) best = 0;
+    const int ref = res_ref()[best], n = min(ref >> 16, cf.MAXLEN);
+    int8_t* to = R.lab + (size_t)out * cf.MAXLEN;
+    for (int m = n + lane; m < cf.MAXLEN; m += 32) to[m] = (int8_t)kPad;
+    if (lane == 0) {
+      if (ref) result_to(to, ref);
+      R.code[out] = code;
+      R.overflow[out] = overflow;
+      R.has[out] = has;
+      R.len[out] = res_len()[best];
+      R.i[out] = res_i()[best];
+    }
+  }
+
+  // the lane state of WalkState row g into shared memory; the loaded
+  // labels become history positions [0, cur_len) whose parent is their slot
+  __device__ __forceinline__ void load(const State& S, int g) {
     const int L = cf.L, NC = cf.NC;
     const size_t gl = (size_t)g * L;
-    const int ik = K.init_k[t];
-    const int8_t* q = K.query + (size_t)t * cf.QMAX;
-    for (int l = 0; l < L; ++l) {
-      int8_t* lab = S.labels + (gl + l) * cf.MAXLEN;
-      for (int m = 0; m < cf.MAXLEN; ++m)
-        lab[m] = (l == 0 && m < ik && m < cf.QMAX) ? q[m] : (int8_t)kPad;
-      const bool u = l == 0;
-      const size_t x = gl + l;
-      S.f_lo[x] = u ? RT.f_lo[t] : 0;
-      S.f_hi[x] = u ? RT.f_hi[t] : -1;
-      S.r_lo[x] = u ? RT.r_lo[t] : 0;
-      S.r_hi[x] = u ? RT.r_hi[t] : -1;
-      S.alive[x] = u;
-      S.kmer_freq[x] = u ? RT.freq[t] : 0;
-      S.total_kmer[x] = 0;
-      S.last_seed_idx[x] = u ? ik - cf.SS : 0;
-      S.last_overlap_len[x] = u ? ik : 0;
-      S.total_seeds[x] = u ? ik - cf.SS + 1 : 0;
-      S.curr_overlap_len[x] = u ? ik : 0;
-      S.num_errors[x] = 0;
-      S.seed_idx_offset[x] = 0;
-      S.query_overlap_len[x] = u ? ik : 0;
-      S.red_a[x] = 0;
-      S.red_b[x] = 0;
-      S.res_first[x] = -1;
-      S.res_second[x] = -1;
-      S.tail_letter[x] = u ? RT.tail_letter[t] : (int8_t)0;
-      S.tail_count[x] = u ? RT.tail_count[t] : 0;
-      S.tail9[x] = u ? RT.tail9[t] : 0;
-      S.tail8[x] = u ? RT.tail8[t] : 0;
-      int* ch = S.chain + x * 4 * NC;
-      for (int qq = 0; qq < 4; ++qq)
-        for (int j = 0; j < NC; ++j)
-          ch[qq * NC + j] = u ? RT.chain0[((size_t)t * 4 + qq) * NC + j]
-                              : ((qq & 1) ? -1 : 0);
-      S.local_err[x] = 0.0f;
-      S.gerr_last[x] = 0.0f;
-      for (int m = 0; m < cf.RING; ++m) S.ring[x * cf.RING + m] = 0.0f;
+    active = S.active[g];
+    code = S.code[g];
+    cur_len = S.cur_len[g];
+    cur_k = S.cur_k[g];
+    gerr_n = S.gerr_n[g];
+    res_count = S.res_count[g];
+    overflow = S.res_overflow[g];
+    alive = __ballot_sync(kFull, lane < L && S.alive[gl + lane]);
+    owner = 0;
+    const int base_len = clampi(cur_len, 0, cf.MAXLEN);
+    if (lane < L) {
+      const size_t x = gl + lane;
+      int* D = rec(0, lane);
+      D[F_FLO] = S.f_lo[x];
+      D[F_FHI] = S.f_hi[x];
+      D[F_RLO] = S.r_lo[x];
+      D[F_RHI] = S.r_hi[x];
+      D[F_KFREQ] = S.kmer_freq[x];
+      D[F_TOTK] = S.total_kmer[x];
+      D[F_LSEED] = S.last_seed_idx[x];
+      D[F_LOVL] = S.last_overlap_len[x];
+      D[F_TSEEDS] = S.total_seeds[x];
+      D[F_COVL] = S.curr_overlap_len[x];
+      D[F_NERR] = S.num_errors[x];
+      D[F_SIO] = S.seed_idx_offset[x];
+      D[F_QOVL] = S.query_overlap_len[x];
+      D[F_REDA] = S.red_a[x];
+      D[F_REDB] = S.red_b[x];
+      D[F_RF] = S.res_first[x];
+      D[F_RS] = S.res_second[x];
+      D[F_TLET] = S.tail_letter[x];
+      D[F_TCNT] = S.tail_count[x];
+      D[F_T9] = S.tail9[x];
+      D[F_T8] = S.tail8[x];
+      D[F_LERR] = __float_as_int(S.local_err[x]);
+      D[F_GLAST] = __float_as_int(S.gerr_last[x]);
+      D[F_LEN] = base_len;
     }
-    S.active[g] = true;
-    S.cur_len[g] = ik;
-    S.cur_k[g] = ik;
-    S.gerr_n[g] = 1;
-    S.code[g] = 0;
+    for (int i = lane; i < L * 4 * NC; i += 32)
+      rec(0, i / (4 * NC))[kScal + i % (4 * NC)] = S.chain[gl * 4 * NC + i];
+    for (int i = lane; i < L * cf.RING; i += 32)
+      ring(rec(0, i / cf.RING))[i % cf.RING] = S.ring[gl * cf.RING + i];
+    for (int i = lane; i < L * base_len; i += 32) {
+      const int l = i / base_len, pos = i % base_len;
+      hist()[pos * L + l] = (uint8_t)((S.labels[(gl + l) * cf.MAXLEN + pos] & 7) | (l << 3));
+    }
     const size_t gr = (size_t)g * cf.RMAX;
-    for (int r = 0; r < cf.RMAX; ++r) {
-      int8_t* lab = S.res_labels + (gr + r) * cf.MAXLEN;
-      for (int m = 0; m < cf.MAXLEN; ++m) lab[m] = (int8_t)kPad;
-      S.res_len[gr + r] = 0;
-      S.res_err[gr + r] = 0.0f;
-      S.res_i[gr + r] = 0;
+    for (int r = lane; r < cf.RMAX; r += 32) {
+      res_len()[r] = S.res_len[gr + r];
+      res_err()[r] = S.res_err[gr + r];
+      res_i()[r] = S.res_i[gr + r];
+      res_ref()[r] = 0;
     }
-    S.res_count[g] = 0;
-    S.res_overflow[g] = false;
+    __syncwarp();
+  }
+
+  // the lane state back into WalkState row g: every leaf slot's current
+  // record, its label (positions [0, its length)), the result slots and
+  // the labels of those written since the load
+  __device__ __forceinline__ void store(const State& S, int g) const {
+    const int L = cf.L, NC = cf.NC;
+    const size_t gl = (size_t)g * L;
+    if (lane < L) {
+      const size_t x = gl + lane;
+      const int* D = cur(lane);
+      S.f_lo[x] = D[F_FLO];
+      S.f_hi[x] = D[F_FHI];
+      S.r_lo[x] = D[F_RLO];
+      S.r_hi[x] = D[F_RHI];
+      S.alive[x] = (alive >> lane) & 1;
+      S.kmer_freq[x] = D[F_KFREQ];
+      S.total_kmer[x] = D[F_TOTK];
+      S.last_seed_idx[x] = D[F_LSEED];
+      S.last_overlap_len[x] = D[F_LOVL];
+      S.total_seeds[x] = D[F_TSEEDS];
+      S.curr_overlap_len[x] = D[F_COVL];
+      S.num_errors[x] = D[F_NERR];
+      S.seed_idx_offset[x] = D[F_SIO];
+      S.query_overlap_len[x] = D[F_QOVL];
+      S.red_a[x] = D[F_REDA];
+      S.red_b[x] = D[F_REDB];
+      S.res_first[x] = D[F_RF];
+      S.res_second[x] = D[F_RS];
+      S.tail_letter[x] = (int8_t)D[F_TLET];
+      S.tail_count[x] = D[F_TCNT];
+      S.tail9[x] = D[F_T9];
+      S.tail8[x] = D[F_T8];
+      S.local_err[x] = __int_as_float(D[F_LERR]);
+      S.gerr_last[x] = __int_as_float(D[F_GLAST]);
+      label_to(S.labels + x * cf.MAXLEN, min(D[F_LEN], cf.MAXLEN), lane);
+    }
+    for (int i = lane; i < L * 4 * NC; i += 32)
+      S.chain[gl * 4 * NC + i] = cur(i / (4 * NC))[kScal + i % (4 * NC)];
+    for (int i = lane; i < L * cf.RING; i += 32)
+      S.ring[gl * cf.RING + i] = ring(cur(i / cf.RING))[i % cf.RING];
+    const size_t gr = (size_t)g * cf.RMAX;
+    for (int r = lane; r < cf.RMAX; r += 32) {
+      S.res_len[gr + r] = res_len()[r];
+      S.res_err[gr + r] = res_err()[r];
+      S.res_i[gr + r] = res_i()[r];
+      if (res_ref()[r]) result_to(S.res_labels + (gr + r) * cf.MAXLEN, res_ref()[r]);
+    }
+    if (lane == 0) {
+      S.code[g] = code;
+      S.cur_len[g] = cur_len;
+      S.cur_k[g] = cur_k;
+      S.gerr_n[g] = gerr_n;
+      S.res_count[g] = res_count;
+      S.res_overflow[g] = overflow;
+    }
+    __syncwarp();
+  }
+
+  // _init_state of one lane from task row t, in shared memory
+  __device__ __forceinline__ void seed(const Root& RT) {
+    const int L = cf.L, NC = cf.NC;
+    const int ik = K.init_k[t];
+    active = true;
+    code = 0;
+    cur_len = cur_k = ik;
+    gerr_n = 1;
+    res_count = 0;
+    overflow = false;
+    alive = 1u;
+    owner = 0;
+    const int base_len = clampi(ik, 0, cf.MAXLEN);
+    if (lane < L) {
+      const bool u = lane == 0;
+      int* D = rec(0, lane);
+      D[F_FLO] = u ? RT.f_lo[t] : 0;
+      D[F_FHI] = u ? RT.f_hi[t] : -1;
+      D[F_RLO] = u ? RT.r_lo[t] : 0;
+      D[F_RHI] = u ? RT.r_hi[t] : -1;
+      D[F_KFREQ] = u ? RT.freq[t] : 0;
+      D[F_TOTK] = 0;
+      D[F_LSEED] = u ? ik - cf.SS : 0;
+      D[F_LOVL] = u ? ik : 0;
+      D[F_TSEEDS] = u ? ik - cf.SS + 1 : 0;
+      D[F_COVL] = u ? ik : 0;
+      D[F_NERR] = 0;
+      D[F_SIO] = 0;
+      D[F_QOVL] = u ? ik : 0;
+      D[F_REDA] = 0;
+      D[F_REDB] = 0;
+      D[F_RF] = -1;
+      D[F_RS] = -1;
+      D[F_TLET] = u ? RT.tail_letter[t] : 0;
+      D[F_TCNT] = u ? RT.tail_count[t] : 0;
+      D[F_T9] = u ? RT.tail9[t] : 0;
+      D[F_T8] = u ? RT.tail8[t] : 0;
+      D[F_LERR] = __float_as_int(0.0f);
+      D[F_GLAST] = __float_as_int(0.0f);
+      D[F_LEN] = base_len;
+    }
+    for (int i = lane; i < L * 4 * NC; i += 32) {
+      const int l = i / (4 * NC), k = i % (4 * NC);
+      rec(0, l)[kScal + k] = l == 0 ? RT.chain0[(size_t)t * 4 * NC + k] : ((k / NC) & 1 ? -1 : 0);
+    }
+    for (int i = lane; i < L * cf.RING; i += 32) ring(rec(0, i / cf.RING))[i % cf.RING] = 0.0f;
+    const int8_t* q = K.query + (size_t)t * cf.QMAX;
+    for (int i = lane; i < L * base_len; i += 32) {
+      const int l = i / base_len, pos = i % base_len;
+      const int s = (l == 0 && pos < cf.QMAX) ? q[pos] : kPad;
+      hist()[pos * L + l] = (uint8_t)((s & 7) | (l << 3));
+    }
+    for (int r = lane; r < cf.RMAX; r += 32) {
+      res_len()[r] = 0;
+      res_err()[r] = 0.0f;
+      res_i()[r] = 0;
+      res_ref()[r] = 0;
+    }
+    __syncwarp();
   }
 };
 

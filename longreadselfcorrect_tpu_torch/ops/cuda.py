@@ -53,9 +53,12 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
     "-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
+    "-Xptxas", "-v",   # registers, stack frame and spills per kernel, in BUILD_LOGS
 ]
 
 LAUNCHES = {name: 0 for name in KERNELS}
+# library -> the compiler's output of the build this process made
+BUILD_LOGS: dict[str, str] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -120,6 +123,7 @@ def build(libs=None) -> dict[str, str]:
             os.unlink(tmp)
             errors.append(f"nvcc {SOURCES[lib]} failed:\n{log}")
         else:
+            BUILD_LOGS[lib] = log
             os.replace(tmp, paths[lib])  # atomic: concurrent builders agree
     if errors:
         raise RuntimeError("\n".join(errors))
@@ -148,8 +152,9 @@ _SIGNATURES = {
     # the walk kernels take (pointer array, int array), both in host memory
     "lrsc_wcache_level_up": [_P, _P, _P],
     "lrsc_walk_prep": [_P, _P, _P],
-    "lrsc_walk_steps": [_P, _P, _P],
-    "lrsc_walk_queue": [_P, _P, _P],
+    # ... and a host int[4] that receives the launch geometry
+    "lrsc_walk_steps": [_P, _P, _P, _P],
+    "lrsc_walk_queue": [_P, _P, _P, _P],
     "lrsc_lf_extract": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P],
     "lrsc_banded_fill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
@@ -190,9 +195,12 @@ def int_array(vals) -> ctypes.Array:
     return (ctypes.c_int * len(vals))(*(int(v) for v in vals))
 
 
-def check(kernel: str, t: torch.Tensor, dtype: torch.dtype, shape=None) -> int:
-    """Validate a kernel argument; returns its data pointer."""
-    if not t.is_cuda:
+def check(kernel: str, t: torch.Tensor, dtype: torch.dtype, shape=None,
+          on_card: bool = True) -> int:
+    """Validate a kernel argument; returns its data pointer.  on_card=False
+    takes a CPU tensor too (the C entries compiled for the host, in the
+    tests)."""
+    if on_card and not t.is_cuda:
         raise ValueError(f"{kernel}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{kernel}: expected {dtype}, got {t.dtype}")

@@ -8,7 +8,9 @@ divergences of that module: seed-support ties break by smaller position,
 and error rates are float32 built from integer counters; lanes whose
 outcome hinges on an f32 tie are flagged for host replay).
 
-Four CUDA kernels (csrc/walk.cu) carry it on the card:
+Four CUDA kernels (csrc/walk.cu) carry it on the card (the walk kernels
+one warp per gap lane, the lane's state in shared memory as
+``lane_smem_bytes`` plans it):
 
 * ``wcache_level_up`` -- one trie level of the ck-mer interval cache;
 * ``walk_prep``       -- the per-task constants and root seeds of a batch;
@@ -47,7 +49,6 @@ I8 = torch.int8
 F32 = torch.float32
 
 CACHE_K = 8  # base cached k-mer length for chain seeding (BWTIntervalCache analog)
-QUEUE_LANES = 8192  # lanes of the queue kernel (one thread each)
 # walk_steps launches per config (G set to 0): which configs a run walked
 STEP_CONFIGS: dict = {}
 _BIG = 1 << 30
@@ -185,12 +186,13 @@ def wcache_level_up_plain(ix: IndexSet, f_lo, f_hi, r_lo, r_hi, chunk=1 << 22):
     return tuple(outs)
 
 
-def _index_ptrs(name: str, ix: IndexSet) -> list[int]:
+def _index_ptrs(name: str, ix: IndexSet, on_card: bool = True) -> list[int]:
     """Pointers of the index pair, RBWT first: blocks, ckpt, C each."""
     out = []
     for fm in (ix.rbwt, ix.bwt):
-        out += [cuda.check(name, fm.blocks, I8), cuda.check(name, fm.ckpt, I32),
-                cuda.check(name, fm.C, I32)]
+        out += [cuda.check(name, fm.blocks, I8, on_card=on_card),
+                cuda.check(name, fm.ckpt, I32, on_card=on_card),
+                cuda.check(name, fm.C, I32, on_card=on_card)]
     return out
 
 
@@ -223,7 +225,7 @@ def _level_up_kernel(ix: IndexSet, f_lo, f_hi, r_lo, r_hi):
 
 @dataclass(frozen=True)
 class WalkConfig:
-    G: int = 64            # gap lanes of a batch (the queue engine's lane count)
+    G: int = 64            # gap lanes of a batch (the plain queue walks G at a time)
     L: int = 4             # leaf storage slots (gaps that grow beyond L but
                            # <= maxLeaves are re-run at L = max_leaves)
     CAND: int = 16         # transient candidates (4 * L)
@@ -1179,20 +1181,20 @@ def _cfg_dims(cfg: WalkConfig) -> list[int]:
             cfg.seed_size, cfg.max_leaves, cfg.CK, int(cfg.SLAB), cfg.SB]
 
 
-def _tensor_ptrs(name: str, obj, fields) -> list[int]:
+def _tensor_ptrs(name: str, obj, fields, on_card: bool = True) -> list[int]:
     out = []
     for f in fields:
         t = getattr(obj, f)
-        if not t.is_cuda or not t.is_contiguous():
+        if (on_card and not t.is_cuda) or not t.is_contiguous():
             raise ValueError(f"{name}: {f} must be a contiguous CUDA tensor")
         out.append(t.data_ptr())
     return out
 
 
-def _shared_ptrs(name: str, consts: WalkConsts) -> list[int]:
-    return [cuda.check(name, consts.freqs, F32, (101,)),
-            cuda.check(name, consts.pacbio_e.reshape(1), F32),
-            cuda.check(name, consts.err_bound.reshape(1), F32)]
+def _shared_ptrs(name: str, consts: WalkConsts, on_card: bool = True) -> list[int]:
+    return [cuda.check(name, consts.freqs, F32, (101,), on_card),
+            cuda.check(name, consts.pacbio_e.reshape(1), F32, on_card=on_card),
+            cuda.check(name, consts.err_bound.reshape(1), F32, on_card=on_card)]
 
 
 def _reduced_empty(G: int, cfg: WalkConfig, dev) -> Reduced:
@@ -1236,23 +1238,90 @@ def _walk_steps_kernel(wx: WalkIndex, consts: WalkConsts, state: WalkState,
     red = _reduced_empty(G, cfg, state.code.device)
     if G == 0:
         return red
-    scratch = torch.empty((G, _scratch_words(cfg)), dtype=I32, device=state.code.device)
-    ptrs = (_index_ptrs(name, wx.ix) + [cuda.check(name, wx.wcache, I32)]
-            + _tensor_ptrs(name, consts, CONST_FIELDS) + _shared_ptrs(name, consts)
-            + _tensor_ptrs(name, state, STATE_FIELDS)
-            + _tensor_ptrs(name, red, REDUCED_FIELDS) + [scratch.data_ptr()])
-    cuda.launch(name, "lrsc_walk_steps", cuda.ptr_array(ptrs),
-                cuda.int_array(_index_dims(wx.ix) + _cfg_dims(cfg) + [G, n]))
+    info = cuda.int_array([0] * 4)
+    cuda.launch(name, "lrsc_walk_steps", *steps_args(wx, consts, state, red, cfg, n), info)
+    _geometry(name, cfg, info)
     key = replace(cfg, G=0)
     STEP_CONFIGS[key] = STEP_CONFIGS.get(key, 0) + 1
     return red
 
 
-def _scratch_words(cfg: WalkConfig) -> int:
-    """Per-lane int32 scratch of the kernels: the new leaves' labels,
-    rings and chain rings (written while the parents' are read)."""
-    L = cfg.L
-    return (L * cfg.MAXLEN + 3) // 4 + L * cfg.RING + L * 4 * cfg.NCHAIN
+def steps_args(wx: WalkIndex, consts: WalkConsts, state: WalkState, red: Reduced,
+               cfg: WalkConfig, n: int, on_card: bool = True):
+    """(pointer array, int array) of lrsc_walk_steps, in csrc/walk.cu's
+    order; on_card=False takes CPU tensors (the entry compiled for the
+    host, in the tests)."""
+    name = "walk_steps"
+    G = state.code.shape[0]
+    plan = lane_smem_bytes(cfg)
+    ptrs = (_index_ptrs(name, wx.ix, on_card) + [cuda.check(name, wx.wcache, I32, on_card=on_card)]
+            + _tensor_ptrs(name, consts, CONST_FIELDS, on_card)
+            + _shared_ptrs(name, consts, on_card)
+            + _tensor_ptrs(name, state, STATE_FIELDS, on_card)
+            + _tensor_ptrs(name, red, REDUCED_FIELDS, on_card))
+    ints = (_index_dims(wx.ix) + _cfg_dims(cfg)
+            + [G, n, plan.total, min(plan.warps_per_block, G)])
+    return cuda.ptr_array(ptrs), cuda.int_array(ints)
+
+
+# ---------------------------------------------------------------------------
+# the walk kernels' shared-memory plan and launch geometry
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232448   # shared memory one block may use on the H100 (bytes)
+LANE_WARPS = 4        # most gap lanes (warps) per block of the walk kernels
+_SCAL, _CAND_W = 24, 24  # ints of a leaf record's scalars, of a candidate's scratch
+# the last launch geometry of each walk kernel (from its C entry)
+GEOMETRY: dict = {}
+
+
+@dataclass(frozen=True)
+class LanePlan:
+    """One gap lane's shared memory (bytes), as csrc/walk.cuh lays it out:
+    two records per leaf slot (scalars, chain ring, error ring), the
+    candidates' scratch of a superstep, the result slots, the leaf sources
+    and the labels as a history of (symbol, parent slot) bytes."""
+
+    records: int
+    candidates: int
+    results: int
+    leaf_src: int
+    history: int
+    labels: str            # where the labels live: "shared"
+    total: int
+    warps_per_block: int   # lanes per block of a launch
+
+
+def _a16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def lane_smem_bytes(cfg: WalkConfig) -> LanePlan:
+    """The shared-memory plan of one gap lane of the walk kernels; raises
+    where the kernels cannot take cfg (a lane above one block's shared
+    memory, more than 32 leaf slots or 64 result slots, labels or queries
+    of 64k positions)."""
+    if not 1 <= cfg.L <= 32 or cfg.RMAX > 64 or max(cfg.MAXLEN, cfg.QMAX) >= 1 << 16:
+        raise ValueError(f"walk kernels: L={cfg.L} RMAX={cfg.RMAX} MAXLEN={cfg.MAXLEN} "
+                         f"QMAX={cfg.QMAX} out of range")
+    rs = _SCAL + 4 * cfg.NCHAIN + ((cfg.RING + 3) & ~3)
+    parts = dict(records=2 * cfg.L * rs * 4, candidates=4 * cfg.L * _CAND_W * 4,
+                 results=_a16(5 * cfg.RMAX * 4), leaf_src=_a16(cfg.L * 4),
+                 history=_a16(cfg.MAXLEN * cfg.L))
+    total = sum(parts.values())
+    if total > SMEM_LIMIT:
+        raise ValueError(f"walk kernels: a lane of {cfg} needs {total} bytes of shared "
+                         f"memory, above {SMEM_LIMIT}")
+    return LanePlan(**parts, labels="shared", total=total,
+                    warps_per_block=min(LANE_WARPS, SMEM_LIMIT // total))
+
+
+def _geometry(name: str, cfg: WalkConfig, info) -> None:
+    per_sm, warps, blocks, smem = list(info)
+    GEOMETRY[name] = dict(L=cfg.L, MAXLEN=cfg.MAXLEN, KMAX=cfg.KMAX, blocks_per_sm=per_sm,
+                          warps_per_block=warps, warps_per_sm=per_sm * warps,
+                          blocks=blocks, smem_per_block=smem,
+                          lane_bytes=lane_smem_bytes(cfg).total)
 
 
 # ---------------------------------------------------------------------------
@@ -1291,9 +1360,10 @@ def walk_queue(wx: WalkIndex, bank: QueueBank, n: int, cfg: WalkConfig,
                max_steps: int) -> Reduced:
     """queue_run of the JAX module: the n tasks of the bank, each walked to
     completion (or flagged -900 after max_steps supersteps), per-task
-    reductions [T].  Kernel on CUDA tensors: up to max(cfg.G, QUEUE_LANES)
-    lanes, each taking the next task from a head counter as it finishes
-    one; plain version on CPU (cfg.G lanes in lockstep).
+    reductions [T].  Kernel on CUDA tensors: as many warps as fit the card
+    (one lane each, its state in shared memory), each taking the next task
+    from a head counter as it finishes one; plain version on CPU (cfg.G
+    lanes in lockstep).
     The JAX loop's global bound max_total (never reached) has no
     counterpart: each task is bounded by max_steps, so a launch ends after
     at most ceil(n / G) * max_steps supersteps per lane."""
@@ -1307,25 +1377,32 @@ def _walk_queue_kernel(wx: WalkIndex, bank: QueueBank, n: int, cfg: WalkConfig,
                        max_steps: int) -> Reduced:
     name = "walk_queue"
     T = bank.consts.q_len.shape[0]
-    dev = bank.consts.q_len.device
-    out = _reduced_empty(T, cfg, dev)
-    G = min(n, max(cfg.G, QUEUE_LANES))
+    out = _reduced_empty(T, cfg, bank.consts.q_len.device)
     if n == 0:
         return out
-    # lane state for G lanes (filled by the kernel from the bank)
-    st = init_state(*_bank_rows(bank, torch.zeros(G, dtype=torch.long, device=dev)),
-                    torch.zeros(G, dtype=torch.bool, device=dev), cfg)
-    scratch = torch.empty((G, _scratch_words(cfg)), dtype=I32, device=dev)
-    head = torch.zeros(1, dtype=I32, device=dev)
-    ptrs = (_index_ptrs(name, wx.ix) + [cuda.check(name, wx.wcache, I32)]
-            + _tensor_ptrs(name, bank.consts, CONST_FIELDS)
-            + _shared_ptrs(name, bank.consts)
-            + _tensor_ptrs(name, st, STATE_FIELDS)
-            + _tensor_ptrs(name, out, REDUCED_FIELDS) + [scratch.data_ptr()]
-            + _tensor_ptrs(name, bank.root, ROOT_FIELDS) + [head.data_ptr()])
-    cuda.launch(name, "lrsc_walk_queue", cuda.ptr_array(ptrs),
-                cuda.int_array(_index_dims(wx.ix) + _cfg_dims(cfg) + [G, max_steps, n]))
+    info = cuda.int_array([0] * 4)
+    head = torch.zeros(1, dtype=I32, device=bank.consts.q_len.device)
+    cuda.launch(name, "lrsc_walk_queue",
+                *queue_args(wx, bank, out, head, n, cfg, max_steps), info)
+    _geometry(name, cfg, info)
     return out
+
+
+def queue_args(wx: WalkIndex, bank: QueueBank, out: Reduced, head, n: int,
+               cfg: WalkConfig, max_steps: int, on_card: bool = True):
+    """(pointer array, int array) of lrsc_walk_queue, in csrc/walk.cu's
+    order (head: an int32 [1] zero, the task counter)."""
+    name = "walk_queue"
+    plan = lane_smem_bytes(cfg)
+    ptrs = (_index_ptrs(name, wx.ix, on_card) + [cuda.check(name, wx.wcache, I32, on_card=on_card)]
+            + _tensor_ptrs(name, bank.consts, CONST_FIELDS, on_card)
+            + _shared_ptrs(name, bank.consts, on_card)
+            + _tensor_ptrs(name, out, REDUCED_FIELDS, on_card)
+            + _tensor_ptrs(name, bank.root, ROOT_FIELDS, on_card)
+            + [cuda.check(name, head, I32, (1,), on_card)])
+    ints = (_index_dims(wx.ix) + _cfg_dims(cfg)
+            + [max_steps, n, plan.total, min(plan.warps_per_block, n)])
+    return cuda.ptr_array(ptrs), cuda.int_array(ints)
 
 
 # ---------------------------------------------------------------------------
