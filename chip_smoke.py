@@ -9,7 +9,8 @@ exits non-zero without the final result line):
 1. device   the card's name and power limit (nvidia-smi); no CUDA -> fail
 2. build    the fifteen CUDA kernels from longreadselfcorrect_tpu_torch/csrc
             with nvcc, one process per source, all at once; ptxas's
-            registers, stack frame and spill bytes of walk.cu's kernels
+            registers, stack frame and spill bytes of the kernels of
+            walk.cu, seedscan.cu and msa.cu
 3. data     the bench corpus recipe: a 4 Mb random genome (seed 2026), 30x
             of 2 kb reads (60,000 reads, ~120M symbols per strand) indexed
             with native/fmbuild and packed (with the host-built 8-mer
@@ -18,9 +19,17 @@ exits non-zero without the final result line):
             default -e (seed 2028, its own stamp); all under .torch_cache/;
             then the walk's 12-mer interval table, four level-ups on the card
 4. kernels  each seed-phase kernel against its plain torch version on the
-            card, on the 64-read chunks of the noisy reads, exactly; kernel
-            and plain times (CUDA events, median of 5 after one warm-up)
-            and the least time the card needs for the same work
+            card, exactly, on every 64-read chunk of the 8% and the 15%
+            reads and on a chunk holding an error-free 7 kb segment of the
+            genome (its seeds overflow the JAX design's 128 seed slots; the
+            slot kernels run there at 128 and at the main path's slot
+            count) and a 20 kb read
+            at 8% error (the automaton crosses its mask segments); kernel and plain
+            times (CUDA events, median of 5 after one warm-up) and the least
+            time the card needs for the same work on the first chunk;
+            scan_automaton's time, its longest read's dependent rounds and
+            the us per round on every chunk, and the times of the other two
+            slot kernels there
 5. walks    each walk kernel against its plain version on the card, on the
             gap tasks the 256 noisy reads enumerate, exactly: the level-up
             11 -> 12, the prep of the bank, one superstep and a walk to
@@ -30,10 +39,13 @@ exits non-zero without the final result line):
             lane; then walk_steps and walk_queue at every further config the main
             path routes these tasks to (the bulk's narrow-chain bank, the
             batch buckets, the wide and dense reruns of flagged lanes), and
-            an L = 32, a dense batch and each config of the ladder in any
-            case
+            an L = 32, a dense batch, each config of the ladder and the
+            queue at the narrow-chain bank (KMAX 19) in any case
 6. seeds    the port's seed phase on all 256 noisy reads on the card, held
-            field for field against the host search_seeds on 16 of them
+            field for field against the host search_seeds on 16 of them;
+            then on phase 4's two long reads, whose seeds overflow the JAX
+            design's 128 seed slots (their chunk gets the slots that
+            seed_slots sizes from its width), held the same way
 7. tables   the seed phase's two other table routes, launch counts reset
             just before: the plane route (the index as bit-plane rows, then
             the seed phase with kmer_table_planes, chain seeded from the
@@ -57,19 +69,21 @@ exits non-zero without the final result line):
             reset just before, the MSA kernels' calls recorded: reads/s, the
             split, the DP fallbacks (reached, succeeded, failed) and their
             seconds as a share of the replay, the launches (lf_extract and
-            banded_fill must have run); the first 8 reads that reached the
-            DP fallback held against the host SelfCorrector
-10. msa     lf_extract and banded_fill against their plain versions on the
-            card, exactly, on calls the DP path made; kernel and plain
-            times on the median call, with the bound; per call the host
+            banded_fill must have run, lf_extract once per multiple
+            alignment); the first 8 reads that reached the DP fallback held
+            against the host SelfCorrector
+10. msa     lf_extract against its plain version on every multiple
+            alignment's grouped call, banded_fill on calls the DP path made,
+            exactly; kernel and plain times on the median call, with the
+            bound and lf_extract's us per dependent step; per call the host
             route (numpy) against the card route (copies included): the
             crossover that sets the gates of core/msa.py; both routes of
             build_multiple_alignment on DP fallbacks of the path, consensus
             equal
 11. trace   one more pass over the 256 noisy reads under torch.profiler:
             the device's busy share of each corrector phase, device ms by
-            kernel; then one pass over the 15%-error reads (trace-dp), with
-            the MSA kernels' device ms
+            kernel and each kernel's launches in the pass; then one pass
+            over the 15%-error reads (trace-dp), the same
 12. throughput  the stream over the 2048 further reads, tables warm, four
             times: the DP fallback's loops in numpy, on the card, on the
             card, in numpy; the outputs equal
@@ -102,7 +116,9 @@ DP_VERSION = "v1-15pct-2028"
 N_DP = 256            # reads at pbcorrect's default error rate (-e 0.15)
 DP_ERROR = 0.15
 N_DP_CHECK = 8        # reads that reached the DP fallback, held against the host
-MSA_CHECK_LF = 32     # recorded lf_extract calls replayed against the plain version
+SEG_START, SEG_LEN = 1_000_000, 7000  # the error-free genome segment of phase 4
+LONG_START, LONG_LEN = 2_000_000, 20_000  # phase 4's long read (8% error)
+MSA_CHECK_GATE = 32   # recorded lf_extract calls timed on both routes
 MSA_CHECK_FILL = 16   # recorded banded_fill calls replayed against the plain version
 MSA_CHECK_PILEUPS = 16  # DP fallbacks run through both routes of the MSA
 BATCH_READS = 64      # reads per stream batch (pbcorrect --batch-reads)
@@ -223,13 +239,15 @@ def phase_build():
         cuda.library(lib)
     say(f"build: {len(paths)} libraries ({len(cuda.KERNELS)} kernels) for sm_90a "
         f"in {time.perf_counter() - t0:.2f}s")
-    if "walk" in cuda.BUILD_LOGS:
-        rep = ptxas_report(cuda.BUILD_LOGS["walk"])
-        say("build: walk.cu ptxas (kernel, registers, stack frame B, spill stores B, "
-            f"spill loads B): {json.dumps(rep)}")
-        check(any(r[0] == "walk_steps<4>" for r in rep), "build: no ptxas report for walk.cu")
-    else:
-        say("build: walk.cu was built by an earlier run: no ptxas report")
+    for lib, first in (("walk", "walk_steps<4>"), ("seedscan", "scan_automaton"),
+                       ("msa", "lf_extract")):
+        if lib in cuda.BUILD_LOGS:
+            rep = ptxas_report(cuda.BUILD_LOGS[lib])
+            say(f"build: {lib}.cu ptxas (kernel, registers, stack frame B, spill stores B, "
+                f"spill loads B): {json.dumps(rep)}")
+            check(any(r[0] == first for r in rep), f"build: no ptxas report for {first}")
+        else:
+            say(f"build: {lib}.cu was built by an earlier run: no ptxas report")
 
 
 # ---------------------------------------------------------------------------
@@ -363,7 +381,16 @@ def phase_data():
         f"{t8:.3f}s; ck={ck} {tuple(wx.wcache.shape)} = "
         f"{wx.wcache.numel() * 4 / 1e6:.1f} MB by {ck - walk.CACHE_K} level-ups on the "
         f"card (+ saving wcache{ck}.npy) in {t12:.3f}s")
-    return hix, dix, items, extra, dp
+    # an error-free 7 kb segment of the genome, whose seeds overflow the
+    # 128 seed slots of the automaton, and a 20 kb read at 8% error, whose
+    # automaton crosses two of the kernel's 8192-position mask segments
+    import numpy as np
+
+    genome = make_genome(np.random.default_rng(2026))
+    long_read = noisify(np.random.default_rng(2029),
+                        genome[LONG_START : LONG_START + LONG_LEN], 0.08)
+    return hix, dix, items, extra, dp, [("g7k", genome[SEG_START : SEG_START + SEG_LEN]),
+                                        ("n20k", long_read)]
 
 
 # ---------------------------------------------------------------------------
@@ -443,9 +470,11 @@ def bound(nbytes: float, nops: float):
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
-def phase_kernels(corrector, items):
-    """Every kernel against its plain version on every 64-read chunk; times
-    and bounds on chunk 0.  Returns {kernel: record}."""
+def phase_kernels(corrector, sets):
+    """Every kernel against its plain version on every 64-read chunk of
+    each read set (name, items); times and bounds on the first set's chunk
+    0; scan_automaton's time and dependent rounds on every chunk.  Returns
+    {kernel: record}."""
     import torch
 
     from longreadselfcorrect_tpu_torch.ops import cuda, scan, seedscan
@@ -461,8 +490,11 @@ def phase_kernels(corrector, items):
     bases = torch.arange(1, 5, dtype=torch.int8, device=dev)
     err = {k: 0 for k in SEED_KERNELS}
     rec = {}
+    auto_chunks = []   # scan_automaton per chunk: set, ms, longest chain
     cuda.reset_launches()
-    for ci, (_, _, mat, lens_np) in enumerate(corrector._seed_chunks(items)):
+    chunks = [(name, ci, mat, lens_np) for name, items in sets
+              for ci, (_, _, mat, lens_np) in enumerate(corrector._seed_chunks(items))]
+    for name, ci, mat, lens_np in chunks:
         R, L = mat.shape
         reads = torch.from_numpy(mat).to(dev)
         lens = torch.from_numpy(lens_np).to(dev)
@@ -488,33 +520,50 @@ def phase_kernels(corrector, items):
                                 max_abs_err(attr, calls["attributes"][1]()))
         auto_args = (freq, valid, attr, prefix, lens, thr, pp.start_kmer_len,
                      pp.kmer_len_up_bound, tuple(pp.offset), hh)
-        auto_stats: dict = {}
-        calls["scan_automaton"] = (
-            lambda: seedscan.scan_automaton(*auto_args),
-            lambda: seedscan.scan_automaton_plain(*auto_args))
-        auto = calls["scan_automaton"][0]()
-        err["scan_automaton"] = max(err["scan_automaton"], max_abs_err(
-            auto, seedscan.scan_automaton_plain(*auto_args, stats=auto_stats)))
-        n, starts, sizes, freqs, reps, statics = auto
-        best_stats: dict = {}
-        calls["estimate_best"] = (
-            lambda: seedscan.estimate_best(freq, n, starts, sizes, statics,
-                                           pp.pb_coverage),
-            lambda: seedscan.estimate_best_plain(freq, n, starts, sizes, statics,
-                                                 pp.pb_coverage))
-        err["estimate_best"] = max(err["estimate_best"], max_abs_err(
-            calls["estimate_best"][0](),
-            seedscan.estimate_best_plain(freq, n, starts, sizes, statics,
-                                         pp.pb_coverage, stats=best_stats)))
-        calls["remove_hitchhiking"] = (
-            lambda: seedscan.remove_hitchhiking(n, starts, sizes, freqs, reps,
-                                                pp.radius, hh),
-            lambda: seedscan.remove_hitchhiking_plain(n, starts, sizes, freqs, reps,
-                                                      pp.radius, hh))
-        err["remove_hitchhiking"] = max(err["remove_hitchhiking"], max_abs_err(
-            calls["remove_hitchhiking"][0](), calls["remove_hitchhiking"][1]()))
+        # the seed slots the main path gives this width, and on a wider
+        # chunk also the JAX design's 128, whose last slot is overwritten
+        slots = seedscan.seed_slots(L, pp.start_kmer_len, pp.offset)
+        for smax in sorted({slots, seedscan.SMAX}, reverse=True):
+            auto_stats: dict = {}
+            calls["scan_automaton"] = (
+                lambda: seedscan.scan_automaton(*auto_args, smax),
+                lambda: seedscan.scan_automaton_plain(*auto_args, smax))
+            rounds = torch.zeros(R, dtype=torch.int32, device=dev)
+            auto = seedscan.scan_automaton(*auto_args, smax, rounds=rounds)
+            err["scan_automaton"] = max(err["scan_automaton"], max_abs_err(
+                auto, seedscan.scan_automaton_plain(*auto_args, smax, stats=auto_stats)))
+            n, starts, sizes, freqs, reps, statics = auto
+            check(smax < slots or int(n.max()) < smax,
+                  f"kernels: a read filled the {smax} slots of its {L}-wide chunk")
+            a_ms = time_ms(calls["scan_automaton"][0])
+            auto_chunks.append(dict(set=name, chunk=ci, L=L, slots=smax, ms=round(a_ms, 4),
+                                    rounds=int(rounds.max()), seeds=int(n.sum()),
+                                    full=int((n == smax).sum()),
+                                    us_per_round=round(a_ms * 1e3 / max(int(rounds.max()), 1),
+                                                       3),
+                                    iterations=auto_stats["lane_steps"]))
+            best_stats: dict = {}
+            calls["estimate_best"] = (
+                lambda: seedscan.estimate_best(freq, n, starts, sizes, statics,
+                                               pp.pb_coverage),
+                lambda: seedscan.estimate_best_plain(freq, n, starts, sizes, statics,
+                                                     pp.pb_coverage))
+            err["estimate_best"] = max(err["estimate_best"], max_abs_err(
+                calls["estimate_best"][0](),
+                seedscan.estimate_best_plain(freq, n, starts, sizes, statics,
+                                             pp.pb_coverage, stats=best_stats)))
+            calls["remove_hitchhiking"] = (
+                lambda: seedscan.remove_hitchhiking(n, starts, sizes, freqs, reps,
+                                                    pp.radius, hh),
+                lambda: seedscan.remove_hitchhiking_plain(n, starts, sizes, freqs, reps,
+                                                          pp.radius, hh))
+            err["remove_hitchhiking"] = max(err["remove_hitchhiking"], max_abs_err(
+                calls["remove_hitchhiking"][0](), calls["remove_hitchhiking"][1]()))
+            auto_chunks[-1].update(
+                best_ms=round(time_ms(calls["estimate_best"][0]), 4),
+                hitch_ms=round(time_ms(calls["remove_hitchhiking"][0]), 4))
         torch.cuda.synchronize()
-        if ci:
+        if ci or name != sets[0][0]:
             continue
 
         # chunk 0: times, and the least time the card needs for the work
@@ -533,23 +582,26 @@ def phase_kernels(corrector, items):
             # attr, prefix, lens, thresholds in; two freq entries and one
             # valid entry per lane-step; the seed records out
             "scan_automaton": (4 * R * L + 16 * R * (L + 1) + 4 * R + 12 * K
-                               + 9 * lane_steps + 4 * R + 17 * R * seedscan.SMAX,
+                               + 9 * lane_steps + 4 * R + 17 * R * slots,
                                60 * lane_steps),
             # n, starts, sizes, statics in; one freq entry per pole of each
             # seed plus one per walk step; sk, ek, oor out
-            "estimate_best": (4 * R + 12 * R * seedscan.SMAX
+            "estimate_best": (4 * R + 12 * R * slots
                               + 4 * (2 * nseeds + walk_steps)
-                              + 9 * R * seedscan.SMAX, 10 * (2 * nseeds + walk_steps)),
-            "remove_hitchhiking": (4 * R + 13 * R * seedscan.SMAX + R * seedscan.SMAX,
-                                   10 * R * seedscan.SMAX * seedscan.SMAX),
+                              + 9 * R * slots, 10 * (2 * nseeds + walk_steps)),
+            # n and the valid slots' records in, keep out; ten operations
+            # per pair of valid slots
+            "remove_hitchhiking": (4 * R + 13 * nseeds + R * slots,
+                                   10 * sum(int(v) ** 2 for v in n.tolist())),
         }
         for k, (kern, plain) in calls.items():
             b_ms, b_by = bound(*work[k])
             rec[k] = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
                       "bound_ms": b_ms, "bound_by": b_by}
-        rec["_shape"] = dict(R=R, L=L, K=K, rows=rows, queries=queries,
+        rec["_shape"] = dict(R=R, L=L, K=K, slots=slots, rows=rows, queries=queries,
                              lane_steps=lane_steps, walk_steps=walk_steps,
-                             seeds=nseeds, chunks=(len(items) + R - 1) // R)
+                             seeds=nseeds, chunks={n: sum(c[0] == n for c in chunks)
+                                                   for n, _ in sets})
     shape = rec.pop("_shape")
     for k in SEED_KERNELS:
         rec[k]["max_abs_err"] = err[k]
@@ -559,8 +611,19 @@ def phase_kernels(corrector, items):
          "ms": round(r["ms"], 4), "plain_ms": round(r["plain_ms"], 4),
          "bound_ms": round(r["bound_ms"], 5)}
         for k, r in rec.items()]) + f" shape {json.dumps(shape)}")
+    # the automaton's chain: one block per read, so a launch lasts its
+    # longest read's dependent rounds (a window started, or 32 speculative
+    # inner iterations); iterations: the plain version's lane-steps
+    say("kernels: scan_automaton per chunk (set, chunk, width, seed slots, ms, longest "
+        "read's rounds, us per round, seeds, reads with full slots, inner iterations; "
+        "estimate_best and remove_hitchhiking ms at those slots): "
+        + json.dumps(auto_chunks))
+    rec["scan_automaton"]["chunks"] = auto_chunks
     bad = [k for k, r in rec.items() if not r["equal"]]
     check(not bad, f"kernels: {bad} differ from their plain versions")
+    check(any(c["full"] for c in auto_chunks
+              if c["set"] == "long" and c["slots"] == seedscan.SMAX),
+          "kernels: the 7 kb read did not fill the JAX design's 128 seed slots")
     return rec
 
 
@@ -863,6 +926,9 @@ class ConfigChecks:
             if replace(cfg, G=0) not in self.steps:
                 self.cover(cfg, f"ladder KMAX={cfg.KMAX} MAXLEN={cfg.MAXLEN} "
                                 f"SLAB={cfg.SLAB} (pool tasks)")
+        # the narrow-chain bank, whether or not this run's tasks reach it
+        if replace(c.cfg_lo, G=0) not in self.queue:
+            self.cover_queue(c.cfg_lo, f"narrow-chain bank KMAX={c.cfg_lo.KMAX} (pool tasks)")
         self.report(phase)
 
     def cover(self, cfg, label="main path only"):
@@ -873,6 +939,42 @@ class ConfigChecks:
                and c._task_fits(t.src, t.path, t.trg, t.dis, t.init_k, cfg)]
         check(bool(fit), f"walks: no task fits {cfg}")
         self.steps_check(label, fit[: cfg.G or len(fit)], cfg)
+
+    def cover_queue(self, cfg, label):
+        """walk_queue at cfg against its plain version on QUEUE_LO_TASKS pool
+        tasks that fit it; where too few do, pool tasks whose source seed
+        tail is cut to the bank's largest k (init_k = KMAX - 3, the gap a
+        seed pair with that best k makes)."""
+        from dataclasses import replace
+
+        from longreadselfcorrect_tpu_torch.ops import walk
+
+        c = self.c
+        t0 = time.perf_counter()
+        e, cov = c.params.error_rate, c.params.pb_coverage
+        fits = lambda t: (t.init_k >= cfg.CK and t.max_overlap + 1 <= cfg.KMAX  # noqa: E731
+                          and c._task_fits(t.src, t.path, t.trg, t.dis, t.init_k, cfg))
+        tasks = [t for t in self.pool if fits(t)][:QUEUE_LO_TASKS]
+        native = len(tasks)
+        k = cfg.KMAX - 3
+        for t in self.pool:
+            if len(tasks) >= QUEUE_LO_TASKS:
+                break
+            if t.init_k > k:
+                cut = replace(t, src=t.src[len(t.src) - k:], init_k=k, max_overlap=k + 2)
+                if fits(cut):
+                    tasks.append(cut)
+        check(bool(tasks), f"walks: no task fits {label}")
+        bank = walk.build_bank(c.wx, tasks, cfg, e, cov)
+        got, ms = time_once(lambda: walk.walk_queue(c.wx, bank, len(tasks), cfg, MAX_STEPS))
+        want, plain_ms = time_once(lambda: walk.walk_queue_plain(
+            c.wx, bank, len(tasks), cfg, MAX_STEPS))
+        self.queue[replace(cfg, G=0)] = dict(
+            label=label, T=len(tasks), native=native, err=tensors_err(got, want),
+            ms=round(ms, 4), plain_ms=round(plain_ms, 3), codes=sorted(set(got.code.tolist())),
+            lane_bytes=walk.lane_smem_bytes(cfg).total,
+            warps_per_sm=walk.GEOMETRY["walk_queue"]["warps_per_sm"])
+        self.t += time.perf_counter() - t0
 
     @property
     def err(self):
@@ -896,11 +998,16 @@ def _sig(s):
             s.is_repeat, s.start_best_kmer_size, s.end_best_kmer_size)
 
 
-def phase_seeds(corrector, hix, items):
+def phase_seeds(corrector, hix, items, long_items):
+    """The seed phase on all noisy reads, the first N_HOST_SEEDS held
+    against the host search_seeds; then phase 4's long reads, whose seeds
+    overflow the JAX design's 128 seed slots, and whose chunk has the slots
+    seed_slots sizes from its width, held the same way."""
     import torch
 
     from longreadselfcorrect_tpu_torch.core import seeds
-    from longreadselfcorrect_tpu_torch.ops import cuda
+    from longreadselfcorrect_tpu_torch.core.batch_correct import L_BUCKET
+    from longreadselfcorrect_tpu_torch.ops import cuda, seedscan
 
     torch.cuda.synchronize()
     cuda.reset_launches()
@@ -919,6 +1026,31 @@ def phase_seeds(corrector, hix, items):
         f"{json.dumps(cuda.LAUNCHES)}; first {N_HOST_SEEDS} reads equal to the "
         f"host search_seeds")
     check(n_seeds > len(items), f"seeds: only {n_seeds} seeds")
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    long_got = [ss for _, _, sl in corrector._device_seed_scan(long_items) for ss in sl]
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    for (rid, seq), ss in zip(long_items, long_got):
+        want = seeds.search_seeds(seq, hix, corrector.probe_params, corrector.thresh)
+        check([_sig(s) for s in ss] == [_sig(s) for s in want],
+              f"seeds: long read {rid} differs from the host search_seeds")
+    pp = corrector.probe_params
+    width = max(len(seq) for _, seq in long_items)
+    slots = seedscan.seed_slots(L_BUCKET * -(-width // L_BUCKET), pp.start_kmer_len,
+                                pp.offset)
+    past = sum(len(ss) > seedscan.SMAX for ss in long_got)
+    per_kb = n_seeds / (sum(len(seq) for _, seq in items) / 1e3)
+    say(f"seeds: long reads {[len(seq) for _, seq in long_items]} bp, "
+        f"{[len(ss) for ss in long_got]} seeds ({past} past the JAX design's "
+        f"{seedscan.SMAX} slots), {slots} slots a read, in {dt:.3f}s (host wall incl. "
+        f"collect), launches {json.dumps(launches)}, equal to the host search_seeds; "
+        f"the noisy reads' {per_kb:.2f} seeds a kb fill {seedscan.SMAX} slots from "
+        f"{seedscan.SMAX / per_kb:.2f} kb on")
+    check(past > 0, f"seeds: no long read has more than {seedscan.SMAX} seeds")
+    check(launches.get("scan_automaton", 0) > 0,
+          "seeds: the long reads' seed scan launched no scan_automaton")
     return got
 
 
@@ -1212,7 +1344,7 @@ def phase_dp(hix, wx, params, items, checks):
     cuda.reset_launches()
     walk.STEP_CONFIGS.clear()
     t0 = time.perf_counter()
-    with recording(msa_kernels, "lf_extract", calls["lf"]), \
+    with recording(msa_kernels, "lf_extract_groups", calls["lf"]), \
             recording(msa_kernels, "banded_fill", calls["fill"]), \
             recording(msa, "build_multiple_alignment", calls["msa"]):
         results = run_stream(corrector, items)
@@ -1233,12 +1365,17 @@ def phase_dp(hix, wx, params, items, checks):
     t_host = time.perf_counter() - t1
     say(f"dp: {stream_line(corrector, results, dt)}; {len(dp_reads)} reads reached "
         f"the MSA, {attempts - dp_num} MSA attempts failed; "
-        f"{len(calls['lf'])} lf_extract and {len(calls['fill'])} banded_fill calls; "
-        f"host SelfCorrector on the first {min(N_DP_CHECK, len(dp_reads))} DP reads "
+        f"{len(calls['msa'])} multiple alignments, {len(calls['lf'])} lf_extract_groups "
+        f"calls ({launches['lf_extract']} launches) and {len(calls['fill'])} banded_fill "
+        f"calls; host SelfCorrector on the first {min(N_DP_CHECK, len(dp_reads))} DP reads "
         f"{t_host:.1f}s, all equal; launches {json.dumps(launches)}")
     check(bool(dp_reads), "dp: no read reached the DP fallback")
     missing = [k for k in MSA_KERNELS if launches[k] <= 0]
     check(not missing, f"dp: kernels {missing} were not launched on the DP path")
+    # one LF launch per multiple alignment (the four extractions grouped)
+    check(launches["lf_extract"] == len(calls["lf"]) <= len(calls["msa"]),
+          f"dp: {launches['lf_extract']} lf_extract launches for {len(calls['lf'])} "
+          f"grouped calls and {len(calls['msa'])} multiple alignments")
     new = [k for k in step_cfgs if k not in checks.steps]
     for k in new:
         checks.cover(k)
@@ -1296,37 +1433,57 @@ def phase_msa(hix, dix, calls):
     from longreadselfcorrect_tpu_torch.core.overlapper import fill_cells_batched
     from longreadselfcorrect_tpu_torch.ops import msa_kernels, rank
 
-    host_fm = {id(dix.bwt): hix.bwt, id(dix.rbwt): hix.rbwt}
     rec = {}
     t_phase = time.perf_counter()
 
-    # lf_extract: (fm, roots, steps)
-    lf = [(fm, np.asarray(roots), steps) for fm, roots, steps in calls["lf"]]
+    # lf_extract: (index set, [(strand, roots, max_steps)]), one per
+    # multiple alignment; each against the grouped plain version
+    def lf_inputs(ix, jobs):
+        live = [(strand, np.asarray(roots), int(steps)) for strand, roots, steps in jobs
+                if len(roots) and steps > 0]
+        roots = torch.from_numpy(np.concatenate([r for _, r, _ in live]).astype(np.int32))
+        group = torch.from_numpy(np.repeat(np.arange(len(live), dtype=np.int8),
+                                           [len(r) for _, r, _ in live]))
+        table = [(msa_kernels.STRANDS.index(st), steps) for st, _, steps in live]
+        return ix, roots.cuda(), group.cuda(), table, live
+
+    lf = [lf_inputs(*c) for c in calls["lf"]]
     check(bool(lf), "msa: the DP path made no lf_extract call")
-    lf.sort(key=lambda c: len(c[1]) * c[2])
-    err, gate_pts = 0, []
-    for fm, roots, steps in spread(lf, MSA_CHECK_LF):
-        r = torch.from_numpy(roots.astype(np.int32)).cuda()
-        err = max(err, max_abs_err(msa_kernels.lf_extract_tensors(fm, r, steps),
-                                   msa_kernels.lf_extract_plain(fm, r, steps)))
-        hfm = host_fm[id(fm)]
-        gate_pts.append((len(roots) * steps,
-                         wall_ms(lambda: msa._lf_extract(hfm, roots, steps)),
-                         wall_ms(lambda: msa_kernels.lf_extract(fm, roots, steps))))
-    fm, roots, steps = lf[len(lf) // 2]
-    r = torch.from_numpy(roots.astype(np.int32)).cuda()
+    lf.sort(key=lambda c: sum(len(r) * st for _, r, st in c[4]))
+    err, gate_pts, chains = 0, [], []
+    for ix, roots, group, table, live in lf:
+        got = msa_kernels.lf_extract_groups_tensors(ix, roots, group, table)
+        err = max(err, max_abs_err(got, msa_kernels.lf_extract_groups_plain(
+            ix, roots, group, table)))
+        chains.append(int(got[1].max()))
+    for ix, roots, group, table, live in spread(lf, MSA_CHECK_GATE):
+        jobs = [(st, r, steps) for st, r, steps in live]
+        gate_pts.append((sum(len(r) * steps for _, r, steps in live),
+                         wall_ms(lambda: [msa._lf_extract(getattr(hix, st), r, steps)
+                                          for st, r, steps in jobs]),
+                         wall_ms(lambda: msa_kernels.lf_extract_groups(dix, jobs))))
+    ix, roots, group, table, live = lf[len(lf) // 2]
     with rank.RowTracker(dix) as rt:
-        (_, lens), plain_ms = time_once(lambda: msa_kernels.lf_extract_plain(fm, r, steps))
-    N = len(roots)
-    # each index row read (symbols + checkpoint row), the roots in, the
-    # symbols and lens out; ops: one byte compare per symbol of a step's row
-    b_ms, b_by = bound(rt.rows * 148 + 4 * N + N * steps + 4 * N,
-                       int(lens.sum()) * 128)
+        (_, lens), plain_ms = time_once(lambda: msa_kernels.lf_extract_groups_plain(
+            ix, roots, group, table))
+    N, S = roots.shape[0], max(st for _, st in table)
+    ms = time_ms(lambda: msa_kernels.lf_extract_groups_tensors(ix, roots, group, table))
+    # each index row read (symbols + checkpoint row), the roots and groups
+    # in, the symbols and lens out; ops: one byte compare per symbol of a
+    # step's row.  The chain: the longest row's LF steps, each one load
+    # round
+    b_ms, b_by = bound(rt.rows * 148 + 5 * N + N * S + 4 * N, int(lens.sum()) * 128)
+    chain = int(lens.max())
     rec["lf_extract"] = dict(
-        max_abs_err=err, ms=time_ms(lambda: msa_kernels.lf_extract_tensors(fm, r, steps)),
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        shape=f"N={N} steps={steps}, {int(lens.sum())} LF steps, {rt.rows} index rows",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        shape=f"N={N} in {len(table)} groups, steps {[st for _, st in table]}, "
+              f"{int(lens.sum())} LF steps, longest row {chain}, {rt.rows} index rows",
+        us_per_step=round(ms * 1e3 / max(chain, 1), 3), chain=chain,
         gate=crossover(gate_pts), points=gate_pts)
+    say(f"msa: lf_extract on all {len(lf)} grouped calls of the DP path, exact: "
+        f"{err == 0}; the median call {ms:.4f} ms = {ms * 1e3 / max(chain, 1):.3f} us per "
+        f"dependent step over its longest row's {chain}; longest row per call "
+        f"min/median/max {min(chains)}/{statistics.median(chains)}/{max(chains)}")
 
     # banded_fill: (queries, targets, starts1, starts2, band_width, scores, device)
     fills = sorted(calls["fill"], key=lambda c: len(c[0]) * max(map(len, c[0])))
@@ -1369,13 +1526,13 @@ def phase_msa(hix, dix, calls):
               and ma_h.calculate_base_consensus(15, -1) == ma_d.calculate_base_consensus(15, -1),
               f"msa: the card's route differs from the host's on a {len(args[0])} bp query")
         routes.append((len(args[0]), ma_h.num_rows(), round(t_h * 1e3, 2), round(t_d * 1e3, 2)))
-    lf_sizes = [len(roots) * steps for _, roots, steps in lf]
+    lf_sizes = [sum(len(r) * st for _, r, st in c[4]) for c in lf]
     fill_sizes = [len(c[0]) for c in fills]
     say("msa: " + json.dumps([
         {"name": k, "max_abs_err": r["max_abs_err"], "ms": round(r["ms"], 4),
          "plain_ms": round(r["plain_ms"], 3), "bound_ms": round(r["bound_ms"], 5),
          "bound_by": r["bound_by"], "shape": r["shape"]} for k, r in rec.items()])
-        + f"; calls: lf_extract {len(lf)} (rows x steps min/median/max "
+        + f"; calls: lf_extract {len(lf)} (row-steps min/median/max "
         f"{min(lf_sizes)}/{statistics.median(lf_sizes)}/{max(lf_sizes)}), banded_fill "
         f"{len(fills)} (lanes {min(fill_sizes)}/{statistics.median(fill_sizes)}/"
         f"{max(fill_sizes)})")
@@ -1447,7 +1604,8 @@ def phase_trace(hix, wx, params, items, label="trace", kernels=()):
     chosen = {}
     for k in kernels:
         hits = [(e - s) for s, e, n in dev if f"{k}_kernel" in n]
-        chosen[k] = dict(ms=round(sum(hits) / 1e3, 3), launches=len(hits))
+        if hits:
+            chosen[k] = dict(ms=round(sum(hits) / 1e3, 3), launches=len(hits))
     say(f"{label}: {len(items)} reads, device activity per phase "
         f"(host wall, device busy = union of kernels and copies): {json.dumps(out)}; "
         f"device ms by name: "
@@ -1487,27 +1645,27 @@ def main() -> int:
     sys.path.insert(0, REPO)
     name, _ = phase_device()
     phase_build()
-    hix, dix, items, extra, dp = phase_data()
+    hix, dix, items, extra, dp, seg = phase_data()
 
     from longreadselfcorrect_tpu_torch.core.batch_correct import BatchedSelfCorrector
     from longreadselfcorrect_tpu_torch.core.correct import CorrectionParams
 
     params = CorrectionParams(pb_coverage=COVERAGE, genome=10)
     corrector = BatchedSelfCorrector(hix, dix, params)
-    rec = phase_kernels(corrector, items)
+    rec = phase_kernels(corrector, [("8%", items), ("15%", dp), ("long", seg)])
     walks, checks = phase_walks(corrector, items)
     rec.update(walks)
-    seeds6 = phase_seeds(corrector, hix, items)
+    seeds6 = phase_seeds(corrector, hix, items, seg)
     tables, table_launches = phase_tables(corrector, hix, items, seeds6)
     rec.update(tables)
     launches, wx = phase_correct(hix, dix, params, items, checks)
     dp_launches, calls = phase_dp(hix, wx, params, dp, checks)
     rec.update(phase_msa(hix, dix, calls))
     t0 = time.perf_counter()
-    phase_trace(hix, wx, params, items)
+    phase_trace(hix, wx, params, items, "trace", tuple(KERNEL_INFO))
     say(f"trace: in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    phase_trace(hix, wx, params, dp, "trace-dp", MSA_KERNELS)
+    phase_trace(hix, wx, params, dp, "trace-dp", tuple(KERNEL_INFO))
     say(f"trace-dp: in {time.perf_counter() - t0:.1f}s")
     phase_throughput(hix, wx, params, extra)
     rec["walk_steps"]["max_abs_err"] = max([rec["walk_steps_one"]["err"],

@@ -3,10 +3,12 @@
   index       build BWT/RBWT of a read set          (StriDe/index.cpp)
   pbcorrect   PacBio self-correction                (StriDe/PacBioSelfCorrection.cpp)
 
-pbcorrect's default is the device engine on CUDA: the seed phase and the
-FM-extension walks run as the CUDA kernels of ops/, the MSA/DP fallback on
-the host.  There is no fallback: without a GPU, pass --device cpu (the
-plain torch versions) or --engine host (the numpy engine).
+pbcorrect's default is the device engine on CUDA: the seed phase, the
+FM-extension walks and the MSA/DP fallback's two loops (LF extraction and
+the banded DP fill) run as the CUDA kernels of ops/; the DP backtrack and
+the consensus stay on the host.  There is no fallback: without a GPU, pass
+--device cpu (the plain torch versions) or --engine host (the numpy
+engine).
 """
 from __future__ import annotations
 

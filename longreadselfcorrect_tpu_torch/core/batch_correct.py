@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from . import alphabet as ab
+from . import seeds as seedmod
 from .correct import CorrectionParams, CorrectionResult, SelfCorrector
 from .extend import HostExtendEngine
 from .seeds import Seed
@@ -116,7 +117,9 @@ class BatchedSelfCorrector(SelfCorrector):
     def _seed_records(self, freq, valid, dmat, dlens):
         """The seed scan of one chunk from its k-mer tables (freq, valid
         [max_k+1, R, L] on the device): attributes, automaton, best k,
-        hitchhikers.  Returns the device records _seed_collect reads."""
+        hitchhikers.  Each read has seed_slots(L) slots, more than its
+        seeds, so every seed stays on the device.  Returns the device
+        records _seed_collect reads."""
         pp = self.probe_params
         R, L = dmat.shape
         dev = self.device
@@ -133,23 +136,29 @@ class BatchedSelfCorrector(SelfCorrector):
         n, starts, sizes, freqs, reps, statics = seedscan.scan_automaton(
             freq, valid, attr, prefix, dlens, self._seed_thr,
             pp.start_kmer_len, pp.kmer_len_up_bound, tuple(pp.offset),
-            float(pp.hh_ratio))
+            float(pp.hh_ratio), seedscan.seed_slots(L, pp.start_kmer_len, pp.offset))
         sk, ek, oor = seedscan.estimate_best(
             freq, n, starts, sizes, statics, pp.pb_coverage)
         keep = seedscan.remove_hitchhiking(
             n, starts, sizes, freqs, reps, pp.radius, float(pp.hh_ratio))
-        return (n, starts, sizes, freqs, reps, statics, sk, ek, oor, keep)
+        records = (n, starts, sizes, freqs, reps, statics, sk, ek, oor, keep)
+        if pp.debug_seed:
+            # the scan-k freq row, for the --debugseed attribute trace
+            records += (freq[pp.scan_kmer_len],)
+        return records
 
     def _seed_collect(self, submitted):
         """Pull the seed records to the host and build Seed objects.
         Yields (base, chunk, seeds_per_read)."""
         pp = self.probe_params
         for base, chunk, devs in submitted:
-            (n, starts, sizes, freqs, reps, statics, sk, ek, oor,
-             keep) = (x.cpu().numpy() for x in devs)
+            host = [x.cpu().numpy() for x in devs]
+            n, starts, sizes, freqs, reps, statics, sk, ek, oor, keep = host[:10]
+            if n.max(initial=0) >= starts.shape[1]:
+                raise RuntimeError(f"seed scan: a read filled its {starts.shape[1]} seed slots")
             out = []
             for i, (rid, seq) in enumerate(chunk):
-                seeds = []
+                seeds, outcasts = [], []
                 for j in range(int(n[i])):
                     st, sz = int(starts[i, j]), int(sizes[i, j])
                     s = Seed.make(seq[st : st + sz], st, int(freqs[i, j]),
@@ -162,10 +171,25 @@ class BatchedSelfCorrector(SelfCorrector):
                         s.start_best_kmer_size = int(sk[i, j])
                         s.end_best_kmer_size = int(ek[i, j])
                     s.is_hitchhiked = not bool(keep[i, j])
-                    if not s.is_hitchhiked:
-                        seeds.append(s)
+                    (outcasts if s.is_hitchhiked else seeds).append(s)
+                if pp.debug_seed and len(seq) >= pp.start_kmer_len:
+                    self._dump_seed_scan(rid, seq, host[10][i, : len(seq)], outcasts)
                 out.append(seeds)
             yield base, chunk, out
+
+    def _dump_seed_scan(self, rid, seq, freq_scan, outcasts):
+        """--debugseed files that search_seeds writes on the host engine:
+        extend/<read>.log (the attribute ratio trace, from the read's
+        scan-k freq row) and seed/error/<read>.seed (the outcasts)."""
+        pp = self.probe_params
+        log = seedmod.open_seed_log(pp, rid)
+        if log is not None:
+            with log:
+                if not pp.manual:
+                    read = ab.encode(seq)
+                    seedmod.get_seq_attribute(read, freq_scan, seedmod.base_count_prefix(read),
+                                              self.thresh, pp.scan_kmer_len, log)
+        seedmod.write_outcasts(pp, rid, outcasts)
 
     def _device_seed_scan(self, items):
         """The entire seed phase on the device.  Yields

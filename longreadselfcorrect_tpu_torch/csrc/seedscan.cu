@@ -13,8 +13,6 @@
 
 namespace {
 
-constexpr int kSmax = 128;  // seed slots per read (seedscan.py:32 SMAX)
-
 __device__ __forceinline__ void cswap(int& a, int& b) {
   const int lo = min(a, b), hi = max(a, b);
   a = lo;
@@ -140,117 +138,294 @@ __global__ void attributes_kernel(const int* __restrict__ freq_scan,
 // ---------------------------------------------------------------------------
 // _scan_automaton (seedscan.py:97): the dynamic-k seed state machine.
 //
-// Bound: latency.  Lanes never interact, so each thread runs the JAX body
-// (seedscan.py:137-239) for its read in a while (!done) loop; each step
-// is a short chain of dependent loads from the (L2-resident) tables.  At
-// R = 64 reads the launch is 64 threads on two SMs.
+// Bound: latency.  A read's automaton is one serial chain: the windows
+// run in turn and each inner iteration is a chain of 2-3 dependent loads
+// (attr, then the freq/valid entries its mode and sizes pick) from the
+// L2-resident tables.  Its byte bound (the tables it touches, ~1 us a
+// chunk) is far below one such chain, so what the design can cut is the
+// number of dependent rounds on the chain.  Design, one block per read:
+// * Most windows exit at their first iteration (77% of all iterations on
+//   a 9%-error read), and what that iteration does depends only on the
+//   window's start ip.  Every thread of the block runs the first
+//   iteration of the windows starting at its positions, with the step
+//   function the automaton itself runs, and a warp ballot sets bit p of a
+//   shared mask when that window exits at once, emits nothing and moves
+//   init_pos to p + 1.
+// * Warp 0 runs the automaton.  From init_pos it finds the next clear
+//   bit with a ballot over the mask words and __ffs: every set bit it
+//   passes stands for a window that only advanced init_pos by one.
+// * A window runs as rounds of 32 speculative steps: lane j assumes the j
+//   steps before it were "go" steps, whose state follows from the
+//   window's state and a prefix max of the static freqs (loaded in one
+//   round, freq[stat, curr + j]), and runs one step from there; the first
+//   lane that exits ends the window (its state is the window's), else
+//   lane 31's state starts the next round.  So a window costs one round
+//   per 32 inner iterations instead of one per iteration.
+// * prefix is read only where a seed is emitted (the low-complexity
+//   check); the threshold table sits in shared memory.
+// * A read has smax seed slots, a launch parameter: at 128 (the JAX
+//   design's count) the last slot is overwritten once all are full, and
+//   the corrector sizes smax from the chunk's width so that no read fills
+//   them (ops/seedscan.py seed_slots).
+// * No read-length limit: the mask covers kSeg positions at a time, and
+//   since init_pos never moves back, the block builds the next segment's
+//   mask when the automaton leaves the current one.
+// The step function is the JAX body (seedscan.py:137-239) verbatim,
+// shared by the mask pass and the automaton, so its f32 compares (the
+// -1 of a fake k-mer, 0/0, the clamped gathers) are one piece of code.
 // ---------------------------------------------------------------------------
 
-__global__ void scan_automaton_kernel(
+constexpr int kAutoThreads = 256;
+constexpr int kSeg = 8192;  // positions per mask segment
+constexpr unsigned kFullMask = 0xffffffffu;
+
+struct AutoCtx {
+  const int* __restrict__ freq;
+  const bool* __restrict__ valid;
+  const int* __restrict__ arow;  // attr of this read
+  const float* thr;              // [3, K], in shared memory
+  int K, R, L, r, len, start_kmer, up_bound, off0, off1, off2;
+  float hh, inv_hh;
+
+  __device__ int col(int pos) const { return __ldg(arow + min(max(pos, 0), L - 1)); }
+  __device__ size_t fidx(int k, int pos) const {
+    return ((size_t)min(max(k, 0), K - 1) * R + r) * L + min(max(pos, 0), L - 1);
+  }
+  __device__ float thrget(int mode, int size) const {
+    return thr[min(max(mode, 0), 2) * K + min(max(size, 0), K - 1)];
+  }
+  __device__ int offset(int mode) const {
+    const int m = min(max(mode, 0), 2);
+    return m == 0 ? off0 : (m == 1 ? off1 : off2);
+  }
+};
+
+// the state of one window (seedscan.py:120-135)
+struct Win {
+  int stat, dyn_mode, seed_pos, dyn_size, max_fixed, next_init, curr;
+  bool is_seed, is_rep;
+};
+
+// the outer init of a window starting at ip
+__device__ __forceinline__ Win window_init(const AutoCtx& c, int ip) {
+  Win w;
+  const int dmode = c.col(ip);
+  const int stat0 = c.start_kmer + c.offset(dmode);
+  w.stat = stat0;
+  w.dyn_mode = dmode;
+  w.seed_pos = ip;
+  w.dyn_size = stat0;
+  w.is_seed = false;
+  w.is_rep = false;
+  w.max_fixed = ip + stat0 <= c.len ? __ldg(c.freq + c.fidx(stat0, ip)) : -1;
+  w.next_init = ip;
+  w.curr = ip;
+  return w;
+}
+
+// the static k-mer's freq at curr, the load an iteration makes first
+__device__ __forceinline__ int static_freq(const AutoCtx& c, const Win& w) {
+  return __ldg(c.freq + c.fidx(w.stat, w.curr));
+}
+
+// one inner-loop iteration; true when the window exits
+__device__ __forceinline__ bool auto_step(const AutoCtx& c, Win& w) {
+  const bool exit_now = !(w.curr < c.len) || w.curr + w.stat > c.len;
+  const bool work = !exit_now;
+  const int static_mode = c.col(w.curr);
+  if (work && w.is_seed) w.dyn_size += 1;
+  const bool dyn_fake = w.seed_pos + w.dyn_size > c.len;
+  const size_t di = c.fidx(w.dyn_size, w.seed_pos);
+  const int dyn_freq = dyn_fake ? -1 : __ldg(c.freq + di);
+  const bool dyn_valid = dyn_fake ? false : c.valid[di];
+  const int sfreq = static_freq(c, w);
+  const float dyn_thr = c.thrget(w.dyn_mode, w.dyn_size);
+  const float stat_thr = c.thrget(static_mode, w.stat);
+  const float rep_thr = (5.0f - (float)((static_mode >> 1) << 2)) * stat_thr;
+
+  const bool fail = ((float)sfreq < stat_thr) | ((float)dyn_freq < dyn_thr) |
+                    !dyn_valid | (w.dyn_size > c.up_bound);
+  const float fd = (float)sfreq / (float)w.max_fixed;
+  const bool low = !fail & (fd < c.hh);
+  const bool high = !fail & !low & (fd > c.inv_hh);
+  const bool go = work & !fail & !low & !high;
+  const bool exit_fail = work & fail, exit_low = work & low, exit_high = work & high;
+
+  if (exit_fail && w.is_seed) w.dyn_size -= 1;
+  if (exit_low) w.dyn_size -= 1;
+  if (exit_low) w.next_init += 1;
+  if (exit_high) w.next_init = w.curr - 1;
+  if (go) w.next_init = w.seed_pos + w.dyn_size - 1;
+  if (exit_high) w.is_seed = false;
+  if (go) w.is_seed = true;
+  w.is_rep = w.is_rep | (go & ((float)sfreq >= rep_thr));
+  if (go) w.max_fixed = max(w.max_fixed, sfreq);
+  if (go) w.curr += 1;
+  return exit_now | exit_fail | exit_low | exit_high;
+}
+
+__device__ __forceinline__ Win shfl_win(const Win& s, int src) {
+  Win w;
+  w.stat = __shfl_sync(kFullMask, s.stat, src);
+  w.dyn_mode = __shfl_sync(kFullMask, s.dyn_mode, src);
+  w.seed_pos = __shfl_sync(kFullMask, s.seed_pos, src);
+  w.dyn_size = __shfl_sync(kFullMask, s.dyn_size, src);
+  w.max_fixed = __shfl_sync(kFullMask, s.max_fixed, src);
+  w.next_init = __shfl_sync(kFullMask, s.next_init, src);
+  w.curr = __shfl_sync(kFullMask, s.curr, src);
+  w.is_seed = __shfl_sync(kFullMask, (int)s.is_seed, src) != 0;
+  w.is_rep = false;
+  return w;
+}
+
+// Runs the window that starts at ip on the whole warp (every lane ends
+// with the same state); `rounds` counts its dependent rounds.
+__device__ Win run_window(const AutoCtx& c, int ip, int lane, int& rounds) {
+  Win w = window_init(c, ip);
+  rounds += 1;
+  for (;;) {
+    Win s = w;
+    s.curr = w.curr + lane;
+    if (lane > 0) {  // steps 0 .. lane-1 were go steps
+      s.dyn_size = w.dyn_size + (w.is_seed ? 1 : 0) + (lane - 1);
+      s.is_seed = true;
+      s.next_init = w.seed_pos + s.dyn_size - 1;
+    }
+    // max_fixed after those steps: the exclusive prefix max of the
+    // static freqs of the lanes below
+    int run = static_freq(c, s);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFullMask, run, o);
+      if (lane >= o) run = max(run, v);
+    }
+    const int below = __shfl_up_sync(kFullMask, run, 1);
+    if (lane > 0) s.max_fixed = max(w.max_fixed, below);
+    s.is_rep = false;  // the flag this step alone raises
+    const bool exits = auto_step(c, s);
+    const unsigned ex = __ballot_sync(kFullMask, exits);
+    const unsigned rep = __ballot_sync(kFullMask, s.is_rep);
+    const int e = ex ? __ffs(ex) - 1 : 31;
+    const bool was_rep = w.is_rep;
+    w = shfl_win(s, e);
+    w.is_rep = was_rep | ((rep & (kFullMask >> (31 - e))) != 0);
+    rounds += 1;
+    if (ex) return w;
+  }
+}
+
+// The first clear bit of the mask at or after pos in [pos, seg_end), or
+// seg_end.  mask bit i stands for position seg + i.
+__device__ __forceinline__ int next_window(const unsigned* mask, int seg, int seg_end,
+                                           int pos, int lane) {
+  while (pos < seg_end) {
+    const int w0 = (pos - seg) >> 5;
+    const int wi = w0 + lane;
+    unsigned open = 0;
+    if (seg + (wi << 5) < seg_end) {
+      open = ~mask[wi];
+      if (lane == 0) open &= kFullMask << ((pos - seg) & 31);
+    }
+    const unsigned any = __ballot_sync(kFullMask, open != 0);
+    if (any) {
+      const int l = __ffs(any) - 1;
+      const unsigned bits = __shfl_sync(kFullMask, open, l);
+      return seg + ((w0 + l) << 5) + __ffs(bits) - 1;
+    }
+    pos = seg + ((w0 + 32) << 5);
+  }
+  return seg_end;
+}
+
+__global__ void __launch_bounds__(kAutoThreads) scan_automaton_kernel(
     const int* __restrict__ freq, const bool* __restrict__ valid,
     const int* __restrict__ attr, const int* __restrict__ prefix,
     const int* __restrict__ lens, const float* __restrict__ thr, int K, int R, int L,
     int start_kmer, int up_bound, int off0, int off1, int off2, float hh,
-    float inv_hh, int* __restrict__ n_out, int* __restrict__ starts,
+    float inv_hh, int smax, int* __restrict__ n_out, int* __restrict__ starts,
     int* __restrict__ sizes, int* __restrict__ freqs, bool* __restrict__ reps,
-    int* __restrict__ statics) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
+    int* __restrict__ statics, int* __restrict__ rounds_out) {
+  extern __shared__ int4 auto_smem[];
+  unsigned* mask = reinterpret_cast<unsigned*>(auto_smem);  // [kSeg / 32]
+  float* s_thr = reinterpret_cast<float*>(mask + kSeg / 32);  // [3, K]
+  int* s_next = reinterpret_cast<int*>(s_thr + 3 * K);        // init_pos, done
+  const int r = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int len = lens[r];
-  const int* arow = attr + (size_t)r * L;
-  const int* pre = prefix + (size_t)r * (L + 1) * 4;
-  const size_t o = (size_t)r * kSmax;
-  for (int j = 0; j < kSmax; ++j) {
+  const size_t o = (size_t)r * smax;
+  for (int j = tid; j < smax; j += blockDim.x) {
     starts[o + j] = 0;
     sizes[o + j] = 0;
     freqs[o + j] = 0;
     reps[o + j] = false;
     statics[o + j] = 0;
   }
-  auto col = [&](int pos) { return arow[min(max(pos, 0), L - 1)]; };
-  auto fidx = [&](int k, int pos) {
-    return ((size_t)min(max(k, 0), K - 1) * R + r) * L + min(max(pos, 0), L - 1);
-  };
-  auto thrget = [&](int mode, int size) {
-    return thr[min(max(mode, 0), 2) * K + min(max(size, 0), K - 1)];
-  };
-  auto offset = [&](int mode) {
-    const int m = min(max(mode, 0), 2);
-    return m == 0 ? off0 : (m == 1 ? off1 : off2);
-  };
+  for (int i = tid; i < 3 * K; i += blockDim.x) s_thr[i] = thr[i];
+  const AutoCtx c{freq, valid, attr + (size_t)r * L, s_thr, K, R, L, r, len,
+                  start_kmer, up_bound, off0, off1, off2, hh, inv_hh};
+  const int* pre = prefix + (size_t)r * (L + 1) * 4;
 
-  int init_pos = 0, stat = 0, dyn_mode = 0, seed_pos = 0, dyn_size = 0;
-  bool is_seed = false, is_rep = false, inner = false;
-  int max_fixed = 0, next_init = 0, curr = 0, n = 0;
+  // warp 0's automaton state, kept across segments
+  int init_pos = 0, n = 0, rounds = 0;
   bool done = len < start_kmer;
+  int seg = 0;
   while (!done) {
-    if (!inner) {  // outer init for a new window
-      const int ip = init_pos;
-      const int dmode = col(ip);
-      const int stat0 = start_kmer + offset(dmode);
-      stat = stat0;
-      dyn_mode = dmode;
-      seed_pos = ip;
-      dyn_size = stat0;
-      is_seed = false;
-      is_rep = false;
-      max_fixed = ip + stat0 <= len ? freq[fidx(stat0, ip)] : -1;
-      next_init = ip;
-      curr = ip;
+    const int seg_end = min(seg + kSeg, len);
+    __syncthreads();  // the automaton is done with the last segment's mask
+    for (int b = seg + (tid & ~31); b < seg_end; b += blockDim.x) {
+      const int p = b + lane;
+      bool skip = true;  // no window starts past the read
+      if (p < len) {
+        Win w = window_init(c, p);
+        skip = auto_step(c, w) && !w.is_seed && w.next_init == p;
+      }
+      const unsigned bits = __ballot_sync(kFullMask, skip);
+      if (lane == 0) mask[(b - seg) >> 5] = bits;
     }
-    // one inner-loop iteration
-    const bool exit_now = !(curr < len) || curr + stat > len;
-    const bool work = !exit_now;
-    const int static_mode = col(curr);
-    if (work && is_seed) dyn_size += 1;
-    const bool dyn_fake = seed_pos + dyn_size > len;
-    const size_t di = fidx(dyn_size, seed_pos);
-    const int dyn_freq = dyn_fake ? -1 : freq[di];
-    const bool dyn_valid = dyn_fake ? false : valid[di];
-    const int sfreq = freq[fidx(stat, curr)];
-    const float dyn_thr = thrget(dyn_mode, dyn_size);
-    const float stat_thr = thrget(static_mode, stat);
-    const float rep_thr = (5.0f - (float)((static_mode >> 1) << 2)) * stat_thr;
-
-    const bool fail = ((float)sfreq < stat_thr) | ((float)dyn_freq < dyn_thr) |
-                      !dyn_valid | (dyn_size > up_bound);
-    const float fd = (float)sfreq / (float)max_fixed;
-    const bool low = !fail & (fd < hh);
-    const bool high = !fail & !low & (fd > inv_hh);
-    const bool go = work & !fail & !low & !high;
-    const bool exit_fail = work & fail, exit_low = work & low, exit_high = work & high;
-
-    if (exit_fail && is_seed) dyn_size -= 1;
-    if (exit_low) dyn_size -= 1;
-    if (exit_low) next_init += 1;
-    if (exit_high) next_init = curr - 1;
-    if (go) next_init = seed_pos + dyn_size - 1;
-    if (exit_high) is_seed = false;
-    if (go) is_seed = true;
-    is_rep = is_rep | (go & ((float)sfreq >= rep_thr));
-    if (go) max_fixed = max(max_fixed, sfreq);
-    if (go) curr += 1;
-    const bool exiting = exit_now | exit_fail | exit_low | exit_high;
-
-    // on exit: low-complexity check + emission (seedscan.py:207-227)
-    const int* a = pre + (size_t)min(max(seed_pos + dyn_size, 0), L) * 4;
-    const int* b = pre + (size_t)min(max(seed_pos, 0), L) * 4;
-    const bool lowcx = low_complexity(a[0] - b[0], a[1] - b[1], a[2] - b[2],
-                                      a[3] - b[3], (float)dyn_size);
-    if (exiting && is_seed && !lowcx) {
-      const size_t slot = o + min(n, kSmax - 1);  // slot 127 is overwritten once full
-      starts[slot] = seed_pos;
-      sizes[slot] = dyn_size;
-      freqs[slot] = max_fixed;
-      reps[slot] = is_rep;
-      statics[slot] = stat;
-      if (n < kSmax) n += 1;
+    __syncthreads();
+    if (tid < 32) {
+      while (!done && init_pos < seg_end) {
+        const int ip = next_window(mask, seg, seg_end, init_pos, lane);
+        if (ip >= seg_end) {  // every window up to seg_end exits at once
+          init_pos = seg_end;
+        } else {
+          const Win w = run_window(c, ip, lane, rounds);
+          // on exit: low-complexity check + emission (seedscan.py:207-227)
+          if (w.is_seed) {
+            const int* a = pre + (size_t)min(max(w.seed_pos + w.dyn_size, 0), L) * 4;
+            const int* b = pre + (size_t)min(max(w.seed_pos, 0), L) * 4;
+            const bool lowcx = low_complexity(a[0] - b[0], a[1] - b[1], a[2] - b[2],
+                                              a[3] - b[3], (float)w.dyn_size);
+            if (!lowcx) {
+              if (lane == 0) {
+                // the last slot is overwritten once all are full
+                const size_t slot = o + min(n, smax - 1);
+                starts[slot] = w.seed_pos;
+                sizes[slot] = w.dyn_size;
+                freqs[slot] = w.max_fixed;
+                reps[slot] = w.is_rep;
+                statics[slot] = w.stat;
+              }
+              if (n < smax) n += 1;
+            }
+          }
+          init_pos = w.next_init + 1;
+        }
+        done = init_pos >= len;
+      }
+      if (tid == 0) {
+        s_next[0] = init_pos;
+        s_next[1] = done;
+      }
     }
-    if (exiting) init_pos = next_init + 1;
-    done = exiting && init_pos >= len;
-    inner = !exiting;
+    __syncthreads();
+    done = s_next[1] != 0;
+    seg = s_next[0] / kSeg * kSeg;
   }
-  n_out[r] = n;
+  if (tid == 0) {
+    n_out[r] = n;
+    if (rounds_out != nullptr) rounds_out[r] = rounds;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -302,11 +477,12 @@ __global__ void estimate_best_kernel(const int* __restrict__ freq,
                                      const int* __restrict__ starts,
                                      const int* __restrict__ sizes,
                                      const int* __restrict__ statics, int K, int R,
-                                     int L, int pb_coverage, int* __restrict__ sk,
-                                     int* __restrict__ ek, bool* __restrict__ oor) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= R * kSmax) return;
-  const int r = t / kSmax, j = t - r * kSmax;
+                                     int L, int smax, int pb_coverage,
+                                     int* __restrict__ sk, int* __restrict__ ek,
+                                     bool* __restrict__ oor) {
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (size_t)R * smax) return;
+  const int r = (int)(t / smax), j = (int)(t - (size_t)r * smax);
   const int upper = pb_coverage >> 1, lower = pb_coverage >> 2;
   const bool valid_seed = j < n[r];
   bool o1, o2;
@@ -320,41 +496,52 @@ __global__ void estimate_best_kernel(const int* __restrict__ freq,
 // ---------------------------------------------------------------------------
 // _remove_hitchhiking (seedscan.py:303): keep mask over the seed slots.
 //
-// Bound: the SMAX x SMAX pair test per read, from shared memory.  Design:
-// one block of SMAX threads per read; thread t tests slot t as the subject
-// of every earlier repeat query and as the query of every later repeat
-// subject (axes of the JAX [R, SMAX, SMAX] mask).
+// Bound: the n x n pair test per read (n its seeds), from shared memory.
+// Design: one block per read, the read's smax slots in dynamic shared
+// memory; each thread takes slots t in turn and tests t as the subject of
+// every earlier repeat query and as the query of every later repeat
+// subject (axes of the JAX [R, SMAX, SMAX] mask).  A pair needs both
+// slots valid, so the loops stop at n.
 // ---------------------------------------------------------------------------
 
-__global__ void remove_hitchhiking_kernel(const int* __restrict__ n,
-                                          const int* __restrict__ starts,
-                                          const int* __restrict__ sizes,
-                                          const int* __restrict__ freqs,
-                                          const bool* __restrict__ reps, int radius,
-                                          float hh, float inv_hh,
-                                          bool* __restrict__ keep) {
-  __shared__ int s_start[kSmax], s_end[kSmax], s_freq[kSmax];
-  __shared__ bool s_rep[kSmax], s_valid[kSmax];
-  const int r = blockIdx.x, t = threadIdx.x;
-  const size_t o = (size_t)r * kSmax;
-  s_start[t] = starts[o + t];
-  s_end[t] = starts[o + t] + sizes[o + t] - 1;
-  s_freq[t] = freqs[o + t];
-  s_rep[t] = reps[o + t];
-  s_valid[t] = t < n[r];
+constexpr int kHitchThreads = 128;
+
+__global__ void __launch_bounds__(kHitchThreads) remove_hitchhiking_kernel(
+    const int* __restrict__ n, const int* __restrict__ starts,
+    const int* __restrict__ sizes, const int* __restrict__ freqs,
+    const bool* __restrict__ reps, int smax, int radius, float hh, float inv_hh,
+    bool* __restrict__ keep) {
+  extern __shared__ int4 hitch_smem[];
+  int* s_start = reinterpret_cast<int*>(hitch_smem);  // [smax] each
+  int* s_end = s_start + smax;
+  int* s_freq = s_end + smax;
+  bool* s_rep = reinterpret_cast<bool*>(s_freq + smax);
+  const int r = blockIdx.x;
+  const int nr = min(n[r], smax);
+  const size_t o = (size_t)r * smax;
+  for (int t = threadIdx.x; t < nr; t += blockDim.x) {
+    s_start[t] = starts[o + t];
+    s_end[t] = starts[o + t] + sizes[o + t] - 1;
+    s_freq[t] = freqs[o + t];
+    s_rep[t] = reps[o + t];
+  }
   __syncthreads();
-  bool hitch = false;
-  for (int q = 0; q < t; ++q) {  // t as subject: query q repeat and fd < hh
-    const bool pair = s_valid[q] && s_valid[t] && (s_start[t] - s_end[q] <= radius);
-    const float fd = (float)s_freq[t] / (float)s_freq[q];
-    hitch |= pair && s_rep[q] && (fd < hh);
+  for (int t = threadIdx.x; t < smax; t += blockDim.x) {
+    bool hitch = false;
+    if (t < nr) {
+      for (int q = 0; q < t; ++q) {  // t as subject: query q repeat and fd < hh
+        const bool pair = s_start[t] - s_end[q] <= radius;
+        const float fd = (float)s_freq[t] / (float)s_freq[q];
+        hitch |= pair && s_rep[q] && (fd < hh);
+      }
+      for (int s = t + 1; s < nr; ++s) {  // t as query: subject s repeat and fd > 1/hh
+        const bool pair = s_start[s] - s_end[t] <= radius;
+        const float fd = (float)s_freq[s] / (float)s_freq[t];
+        hitch |= pair && s_rep[s] && (fd > inv_hh);
+      }
+    }
+    keep[o + t] = t < nr && !hitch;
   }
-  for (int s = t + 1; s < kSmax; ++s) {  // t as query: subject s repeat and fd > 1/hh
-    const bool pair = s_valid[t] && s_valid[s] && (s_start[s] - s_end[t] <= radius);
-    const float fd = (float)s_freq[s] / (float)s_freq[t];
-    hitch |= pair && s_rep[s] && (fd > inv_hh);
-  }
-  keep[o + t] = s_valid[t] && !hitch;
 }
 
 }  // namespace
@@ -369,42 +556,54 @@ extern "C" int lrsc_attributes(const int* freq_scan, const int* prefix, const in
   return (int)cudaGetLastError();
 }
 
+// rounds (may be null): per read, the automaton's dependent rounds (one
+// per window started and one per round of 32 speculative steps)
 extern "C" int lrsc_scan_automaton(const int* freq, const bool* valid, const int* attr,
                                    const int* prefix, const int* lens, const float* thr,
                                    int K, int R, int L, int start_kmer, int up_bound,
                                    int off0, int off1, int off2, float hh, float inv_hh,
-                                   int* n, int* starts, int* sizes, int* freqs,
-                                   bool* reps, int* statics, void* stream) {
-  const int threads = 32;
+                                   int smax, int* n, int* starts, int* sizes, int* freqs,
+                                   bool* reps, int* statics, int* rounds, void* stream) {
+  const size_t shmem = sizeof(unsigned) * (kSeg / 32) + sizeof(float) * 3 * K + 2 * sizeof(int);
+  if (K < 1 || L < 1 || smax < 1 || shmem > 48 * 1024) return (int)cudaErrorInvalidValue;
   if (R > 0) {
-    scan_automaton_kernel<<<(R + threads - 1) / threads, threads, 0,
-                            (cudaStream_t)stream>>>(
+    scan_automaton_kernel<<<R, kAutoThreads, shmem, (cudaStream_t)stream>>>(
         freq, valid, attr, prefix, lens, thr, K, R, L, start_kmer, up_bound, off0, off1,
-        off2, hh, inv_hh, n, starts, sizes, freqs, reps, statics);
+        off2, hh, inv_hh, smax, n, starts, sizes, freqs, reps, statics, rounds);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int lrsc_estimate_best(const int* freq, const int* n, const int* starts,
                                   const int* sizes, const int* statics, int K, int R,
-                                  int L, int pb_coverage, int* sk, int* ek, bool* oor,
-                                  void* stream) {
+                                  int L, int smax, int pb_coverage, int* sk, int* ek,
+                                  bool* oor, void* stream) {
   const int threads = 128;
-  if (R > 0) {
-    estimate_best_kernel<<<(R * kSmax + threads - 1) / threads, threads, 0,
-                           (cudaStream_t)stream>>>(freq, n, starts, sizes, statics, K,
-                                                   R, L, pb_coverage, sk, ek, oor);
+  if (smax < 1) return (int)cudaErrorInvalidValue;
+  const size_t blocks = ((size_t)R * smax + threads - 1) / threads;
+  if (blocks > 0) {
+    estimate_best_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        freq, n, starts, sizes, statics, K, R, L, smax, pb_coverage, sk, ek, oor);
   }
   return (int)cudaGetLastError();
 }
 
+// the read's slots live in shared memory: past 48 KB (3,780 slots) the
+// launch asks for the opt-in size, and fails past the card's limit
 extern "C" int lrsc_remove_hitchhiking(const int* n, const int* starts, const int* sizes,
-                                       const int* freqs, const bool* reps, int R,
+                                       const int* freqs, const bool* reps, int R, int smax,
                                        int radius, float hh, float inv_hh, bool* keep,
                                        void* stream) {
+  if (smax < 1) return (int)cudaErrorInvalidValue;
+  const size_t shmem = (size_t)smax * (3 * sizeof(int) + sizeof(bool));
+  if (shmem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        remove_hitchhiking_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (e != cudaSuccess) return (int)e;
+  }
   if (R > 0) {
-    remove_hitchhiking_kernel<<<R, kSmax, 0, (cudaStream_t)stream>>>(
-        n, starts, sizes, freqs, reps, radius, hh, inv_hh, keep);
+    remove_hitchhiking_kernel<<<R, kHitchThreads, shmem, (cudaStream_t)stream>>>(
+        n, starts, sizes, freqs, reps, smax, radius, hh, inv_hh, keep);
   }
   return (int)cudaGetLastError();
 }

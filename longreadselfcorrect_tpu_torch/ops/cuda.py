@@ -146,16 +146,18 @@ _SIGNATURES = {
                                _P, _P, _P],
     "lrsc_attributes": [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P],
     "lrsc_scan_automaton": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _F, _F, _P, _P, _P, _P, _P, _P, _P],
-    "lrsc_estimate_best": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "lrsc_remove_hitchhiking": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P, _P],
+                            _I, _F, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "lrsc_estimate_best": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "lrsc_remove_hitchhiking": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P],
     # the walk kernels take (pointer array, int array), both in host memory
     "lrsc_wcache_level_up": [_P, _P, _P],
     "lrsc_walk_prep": [_P, _P, _P],
     # ... and a host int[4] that receives the launch geometry
     "lrsc_walk_steps": [_P, _P, _P, _P],
     "lrsc_walk_queue": [_P, _P, _P, _P],
-    "lrsc_lf_extract": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P],
+    # the group table is a host int array
+    "lrsc_lf_extract": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P,
+                        _P],
     "lrsc_banded_fill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 

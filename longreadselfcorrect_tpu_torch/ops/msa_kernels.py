@@ -3,28 +3,34 @@
 * ``lf_extract``  — batched LF-walk string extraction across SA rows, the
   device form of retrieveStr's per-row per-base loop
   (PacBio/LongReadOverlap.cpp:700-751).  All rows advance together; a row
-  that reaches '$' parks.
+  that reaches '$' parks.  ``lf_extract_groups`` runs up to MAX_GROUPS
+  such extractions, each on either BWT of one IndexSet with its own step
+  count, as one launch: a multiple alignment's four.
 * ``banded_fill`` — the banded DP cell fill of Overlapper::extendMatch
   (Thirdparty/overlapper.cpp:421-620) for N (query, candidate) lanes with
   their own band origins.  The fill is integer-exact: the host backtrack
   (core/overlapper.extend_match) reads the downloaded cells.
 
-``lf_extract`` and ``banded_fill`` take and return numpy, as the JAX
-wrappers do.  ``lf_extract_tensors`` / ``banded_fill_tensors`` launch
-csrc/msa.cu for CUDA tensors and run the plain versions
-``lf_extract_plain`` / ``banded_fill_plain`` for CPU tensors.
+``lf_extract``, ``lf_extract_groups`` and ``banded_fill`` take and return
+numpy, as the JAX wrappers do; ``lf_extract`` is one group of
+``lf_extract_groups``.  ``lf_extract_groups_tensors`` /
+``banded_fill_tensors`` launch csrc/msa.cu for CUDA tensors and run the
+plain versions ``lf_extract_groups_plain`` / ``banded_fill_plain`` for CPU
+tensors; ``lf_extract_plain`` is one group's plain version.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..index.fmindex import FMIndex
+from ..index.fmindex import FMIndex, IndexSet
 from . import cuda, rank
 
 I32 = torch.int32
 I8 = torch.int8
 INVALID = -(1 << 30)
+MAX_GROUPS = 4          # extractions per lf_extract launch
+STRANDS = ("bwt", "rbwt")  # a group's index: 0 = ix.bwt, 1 = ix.rbwt
 
 
 # ---------------------------------------------------------------------------
@@ -50,49 +56,109 @@ def lf_extract_plain(fm: FMIndex, roots: torch.Tensor, max_steps: int):
     return mat, (mat != 0).sum(dim=1, dtype=I32)
 
 
-def _lf_extract_kernel(fm: FMIndex, roots: torch.Tensor, max_steps: int):
-    name = "lf_extract"
-    if fm.block != 128:
-        raise ValueError(f"{name}: the kernel takes 128-symbol blocks, got {fm.block}")
-    if fm.blocks.data_ptr() % 16:
-        raise ValueError(f"{name}: blocks must be 16-byte aligned")
+def lf_extract_groups_plain(ix, roots: torch.Tensor, group: torch.Tensor, table):
+    """(mat int8 [N, S], lens int32 [N]) in plain torch, S the largest
+    max_steps of `table`: row n is lf_extract_plain of its group's index
+    and max_steps (table[group[n]] = (index 0 bwt / 1 rbwt, max_steps)),
+    zero past them."""
     N = roots.shape[0]
-    nb = fm.blocks.shape[0]
-    mat = torch.empty((N, max_steps), dtype=I8, device=roots.device)
-    lens = torch.empty(N, dtype=I32, device=roots.device)
-    cuda.launch(name, "lrsc_lf_extract",
-                cuda.check(name, fm.blocks, I8, (nb, 128)),
-                cuda.check(name, fm.ckpt, I32, (nb, 5)),
-                cuda.check(name, fm.C, I32, (6,)), nb,
-                cuda.check(name, roots, I32, (N,)), N, max_steps,
-                mat.data_ptr(), lens.data_ptr())
+    S = max(steps for _, steps in table)
+    mat = torch.zeros((N, S), dtype=I8, device=roots.device)
+    lens = torch.zeros(N, dtype=I32, device=roots.device)
+    for g, (which, steps) in enumerate(table):
+        sel = (group == g).nonzero()[:, 0]
+        if sel.numel():
+            m, l = lf_extract_plain(getattr(ix, STRANDS[which]), roots[sel], steps)
+            mat[sel, :steps] = m
+            lens[sel] = l
     return mat, lens
 
 
-def lf_extract_tensors(fm: FMIndex, roots: torch.Tensor, max_steps: int):
-    """(mat int8 [N, max_steps], lens int32 [N]) on roots' device; roots
-    int32 [N], each a row of fm (0 <= root < fm.n), max_steps >= 1.
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
-    if roots.device != fm.device:
-        raise ValueError(f"lf_extract: roots on {roots.device}, index on {fm.device}")
+def lf_extract_args(fm0: FMIndex, fm1: FMIndex, roots, group, table, mat, lens,
+                    on_card: bool = True) -> list:
+    """lrsc_lf_extract's arguments, the stream aside: the two indexes a
+    group can name, the rows and their groups, the group table as a host
+    int array, the outputs.  on_card=False takes CPU tensors (the kernel
+    compiled for the host, in the tests)."""
+    name = "lf_extract"
+    N, S = mat.shape
+    if not 1 <= len(table) <= MAX_GROUPS:
+        raise ValueError(f"{name}: takes 1 to {MAX_GROUPS} groups, got {len(table)}")
+    args = []
+    for fm in (fm0, fm1):
+        if fm.block != 128:
+            raise ValueError(f"{name}: the kernel takes 128-symbol blocks, got {fm.block}")
+        if fm.blocks.data_ptr() % 16:
+            raise ValueError(f"{name}: blocks must be 16-byte aligned")
+        nb = fm.blocks.shape[0]
+        args += [cuda.check(name, fm.blocks, I8, (nb, 128), on_card),
+                 cuda.check(name, fm.ckpt, I32, (nb, 5), on_card),
+                 cuda.check(name, fm.C, I32, (6,), on_card), nb]
+    return args + [cuda.check(name, roots, I32, (N,), on_card),
+                   cuda.check(name, group, I8, (N,), on_card), N,
+                   cuda.int_array([v for row in table for v in row]), len(table), S,
+                   cuda.check(name, mat, I8, (N, S), on_card),
+                   cuda.check(name, lens, I32, (N,), on_card)]
+
+
+def lf_extract_groups_tensors(ix, roots: torch.Tensor, group: torch.Tensor, table):
+    """lf_extract_groups_plain's contract on roots' device: roots int32
+    [N], group int8 [N] (< len(table)), table [(index, max_steps >= 1)].
+    CUDA tensors launch the kernel once; CPU tensors take the plain
+    version."""
+    if roots.device != ix.device:
+        raise ValueError(f"lf_extract: roots on {roots.device}, index on {ix.device}")
     if not roots.is_cuda:
-        return lf_extract_plain(fm, roots, max_steps)
-    return _lf_extract_kernel(fm, roots, max_steps)
+        return lf_extract_groups_plain(ix, roots, group, table)
+    N = roots.shape[0]
+    S = max(steps for _, steps in table)
+    mat = torch.empty((N, S), dtype=I8, device=roots.device)
+    lens = torch.empty(N, dtype=I32, device=roots.device)
+    cuda.launch("lf_extract", "lrsc_lf_extract",
+                *lf_extract_args(ix.bwt, ix.rbwt, roots, group, table, mat, lens))
+    return mat, lens
 
 
 def lf_extract(fm: FMIndex, roots, max_steps: int):
     """core.msa._lf_extract on fm's device: the next <= max_steps symbols
-    reached by LF from each BWT row (per-row stop at '$').
-    Returns (mat int8 [N, max(max_steps, 1)], lens int64 [N]) as numpy."""
-    roots = np.asarray(roots, np.int64)
-    N = len(roots)
-    if N == 0 or max_steps <= 0:
-        return (np.zeros((N, max(max_steps, 1)), np.int8), np.zeros(N, np.int64))
-    if roots.min() < 0 or roots.max() >= fm.n:
-        raise ValueError(f"lf_extract: roots outside [0, {fm.n})")
-    r = torch.from_numpy(roots.astype(np.int32)).to(fm.device)
-    mat, lens = lf_extract_tensors(fm, r, max_steps)
-    return mat.cpu().numpy(), lens.cpu().numpy().astype(np.int64)
+    reached by LF from each BWT row (per-row stop at '$'), as one group of
+    lf_extract_groups.  Returns (mat int8 [N, max(max_steps, 1)], lens
+    int64 [N]) as numpy."""
+    return lf_extract_groups(IndexSet(bwt=fm, rbwt=fm), [("bwt", roots, max_steps)])[0]
+
+
+def lf_extract_groups(ix, jobs):
+    """lf_extract for each of jobs [(strand "bwt" | "rbwt", roots,
+    max_steps)] on ix's device (an IndexSet), the non-empty ones as one
+    launch.  Returns [(mat int8 [N_j, max(max_steps_j, 1)], lens int64
+    [N_j])] as numpy, in the order of jobs."""
+    out = [None] * len(jobs)
+    live = []
+    for j, (strand, roots, max_steps) in enumerate(jobs):
+        roots = np.asarray(roots, np.int64)
+        if len(roots) == 0 or max_steps <= 0:
+            out[j] = (np.zeros((len(roots), max(max_steps, 1)), np.int8),
+                      np.zeros(len(roots), np.int64))
+            continue
+        n = getattr(ix, strand).n
+        if roots.min() < 0 or roots.max() >= n:
+            raise ValueError(f"lf_extract: roots outside [0, {n})")
+        live.append((j, STRANDS.index(strand), roots, int(max_steps)))
+    if len(live) > MAX_GROUPS:
+        raise ValueError(f"lf_extract: {len(live)} groups, at most {MAX_GROUPS} a launch")
+    if live:
+        roots = np.concatenate([r for _, _, r, _ in live]).astype(np.int32)
+        group = np.repeat(np.arange(len(live), dtype=np.int8), [len(r) for _, _, r, _ in live])
+        table = [(which, steps) for _, which, _, steps in live]
+        mat, lens = lf_extract_groups_tensors(
+            ix, torch.from_numpy(roots).to(ix.device), torch.from_numpy(group).to(ix.device),
+            table)
+        mat, lens = mat.cpu().numpy(), lens.cpu().numpy().astype(np.int64)
+        base = 0
+        for j, _, r, steps in live:
+            out[j] = (mat[base : base + len(r), :steps], lens[base : base + len(r)])
+            base += len(r)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,20 @@ from . import cuda
 I32 = torch.int32
 F32 = torch.float32
 
-SMAX = 128  # seed slots per read
+SMAX = 128  # seed slots per read in the JAX design; the least of seed_slots
+
+
+def seed_slots(L: int, start_kmer: int, offsets) -> int:
+    """Seed slots per read that no read of a chunk of width L fills: a
+    multiple of 32, at least SMAX.
+
+    An emitted seed is at least start_kmer + min(offsets) long (its
+    dynamic size never drops below its window's static size), lies inside
+    the read, and the next window starts past its end; so a read of at
+    most L symbols has at most L // that seeds, and one slot more keeps the
+    automaton's overwrite of the last slot out of reach."""
+    most = L // max(1, start_kmer + min(offsets)) + 1
+    return max(SMAX, -(-most // 32) * 32)
 
 
 def _attr_ratio_const() -> np.float32:
@@ -133,9 +146,10 @@ def attributes(freq_scan, prefix, lens, rep_thr: float, scan_k: int):
 
 def scan_automaton_plain(freq, valid, attr, prefix, lens, thr_table,
                          start_kmer: int, up_bound: int, offsets: tuple,
-                         hh_ratio: float, stats: dict | None = None):
+                         hh_ratio: float, smax: int = SMAX, stats: dict | None = None):
     """Lockstep over [R] lanes, one inner-loop iteration per step; finished
-    lanes idle.  stats, if given, gets "lane_steps": the live lane-steps."""
+    lanes idle; smax seed slots per read.  stats, if given, gets
+    "lane_steps": the live lane-steps."""
     K, R, L = freq.shape
     dev = freq.device
     hh_f, inv_f = hh_constants(hh_ratio)
@@ -161,13 +175,13 @@ def scan_automaton_plain(freq, valid, attr, prefix, lens, thr_table,
         init_pos=ZI, stat=ZI, dyn_mode=ZI, seed_pos=ZI, dyn_size=ZI,
         is_seed=ZB, is_repeat=ZB, max_fixed=ZI, next_init=ZI, curr=ZI,
         inner=ZB, done=lens < start_kmer, n=ZI,
-        starts=torch.zeros((R, SMAX), dtype=I32, device=dev),
-        sizes=torch.zeros((R, SMAX), dtype=I32, device=dev),
-        freqs=torch.zeros((R, SMAX), dtype=I32, device=dev),
-        reps=torch.zeros((R, SMAX), dtype=torch.bool, device=dev),
-        statics=torch.zeros((R, SMAX), dtype=I32, device=dev),
+        starts=torch.zeros((R, smax), dtype=I32, device=dev),
+        sizes=torch.zeros((R, smax), dtype=I32, device=dev),
+        freqs=torch.zeros((R, smax), dtype=I32, device=dev),
+        reps=torch.zeros((R, smax), dtype=torch.bool, device=dev),
+        statics=torch.zeros((R, smax), dtype=I32, device=dev),
     )
-    slots = torch.arange(SMAX, dtype=I32, device=dev)[None, :]
+    slots = torch.arange(smax, dtype=I32, device=dev)[None, :]
     lane_steps = 0
     while bool((~s["done"]).any()):
         live = ~s["done"]
@@ -239,14 +253,14 @@ def scan_automaton_plain(freq, valid, attr, prefix, lens, thr_table,
         lowcx = _low_complexity(wc, dyn_size)
         emit = exiting & is_seed & ~lowcx
 
-        slot = s["n"].clamp(0, SMAX - 1)
+        slot = s["n"].clamp(0, smax - 1)
         wsel = (slots == slot[:, None]) & emit[:, None]
         starts = where(wsel, seed_pos[:, None], s["starts"])
         sizes = where(wsel, dyn_size[:, None], s["sizes"])
         freqs = where(wsel, max_fixed[:, None], s["freqs"])
         reps = where(wsel, is_rep[:, None], s["reps"])
         statics = where(wsel, stat[:, None], s["statics"])
-        n = where(emit & (s["n"] < SMAX), s["n"] + 1, s["n"])
+        n = where(emit & (s["n"] < smax), s["n"] + 1, s["n"])
 
         init_pos = where(exiting, next_init + 1, s["init_pos"])
         done = s["done"] | (exiting & (init_pos >= lens))
@@ -263,38 +277,66 @@ def scan_automaton_plain(freq, valid, attr, prefix, lens, thr_table,
     return s["n"], s["starts"], s["sizes"], s["freqs"], s["reps"], s["statics"]
 
 
-def scan_automaton(freq, valid, attr, prefix, lens, thr_table, start_kmer: int,
-                   up_bound: int, offsets: tuple, hh_ratio: float):
-    """SoA seed records (n [R], starts, sizes, freqs [R, SMAX] int32,
-    reps [R, SMAX] bool, statics [R, SMAX] int32).
-
-    freq int32 [K, R, L], valid bool [K, R, L], attr int32 [R, L],
-    prefix int32 [R, L+1, 4], lens int32 [R], thr_table f32 [3, K]."""
-    if not freq.is_cuda:
-        return scan_automaton_plain(freq, valid, attr, prefix, lens, thr_table,
-                                    start_kmer, up_bound, offsets, hh_ratio)
+def scan_automaton_args(freq, valid, attr, prefix, lens, thr_table, start_kmer: int,
+                        up_bound: int, offsets: tuple, hh_ratio: float, outs,
+                        rounds: torch.Tensor | None = None, on_card: bool = True) -> list:
+    """lrsc_scan_automaton's arguments, the stream aside; outs: the six
+    output tensors, whose width is the slot count.  on_card=False takes CPU tensors (the kernel compiled
+    for the host, in the tests)."""
     name = "scan_automaton"
     K, R, L = freq.shape
     off = [int(o) for o in offsets]
     if len(off) != 3:
         raise ValueError(f"{name}: expected 3 offsets, got {off}")
-    args = [cuda.check(name, freq, I32, (K, R, L)),
-            cuda.check(name, valid, torch.bool, (K, R, L)),
-            cuda.check(name, attr, I32, (R, L)),
-            cuda.check(name, prefix, I32, (R, L + 1, 4)),
-            cuda.check(name, lens, I32, (R,)),
-            cuda.check(name, thr_table, F32, (3, K))]
-    dev = freq.device
-    n = torch.empty(R, dtype=I32, device=dev)
-    starts, sizes, freqs, statics = (
-        torch.empty((R, SMAX), dtype=I32, device=dev) for _ in range(4))
-    reps = torch.empty((R, SMAX), dtype=torch.bool, device=dev)
+    ins = [cuda.check(name, freq, I32, (K, R, L), on_card),
+           cuda.check(name, valid, torch.bool, (K, R, L), on_card),
+           cuda.check(name, attr, I32, (R, L), on_card),
+           cuda.check(name, prefix, I32, (R, L + 1, 4), on_card),
+           cuda.check(name, lens, I32, (R,), on_card),
+           cuda.check(name, thr_table, F32, (3, K), on_card)]
+    n, starts, sizes, freqs, reps, statics = outs
+    smax = starts.shape[1]
     hh, inv_hh = hh_constants(hh_ratio)
-    cuda.launch(name, "lrsc_scan_automaton", *args, K, R, L, start_kmer, up_bound,
-                *off, hh, inv_hh, n.data_ptr(), starts.data_ptr(),
-                sizes.data_ptr(), freqs.data_ptr(), reps.data_ptr(),
-                statics.data_ptr())
+    return ins + [K, R, L, start_kmer, up_bound, *off, hh, inv_hh, smax,
+                  cuda.check(name, n, I32, (R,), on_card),
+                  *(cuda.check(name, t, I32, (R, smax), on_card)
+                    for t in (starts, sizes, freqs)),
+                  cuda.check(name, reps, torch.bool, (R, smax), on_card),
+                  cuda.check(name, statics, I32, (R, smax), on_card),
+                  None if rounds is None else cuda.check(name, rounds, I32, (R,), on_card)]
+
+
+def scan_automaton_outputs(R: int, device, smax: int = SMAX) -> tuple:
+    """Empty (n, starts, sizes, freqs, reps, statics) for R reads of smax
+    seed slots."""
+    n = torch.empty(R, dtype=I32, device=device)
+    starts, sizes, freqs, statics = (
+        torch.empty((R, smax), dtype=I32, device=device) for _ in range(4))
+    reps = torch.empty((R, smax), dtype=torch.bool, device=device)
     return n, starts, sizes, freqs, reps, statics
+
+
+def scan_automaton(freq, valid, attr, prefix, lens, thr_table, start_kmer: int,
+                   up_bound: int, offsets: tuple, hh_ratio: float, smax: int = SMAX,
+                   rounds: torch.Tensor | None = None):
+    """SoA seed records (n [R], starts, sizes, freqs [R, smax] int32,
+    reps [R, smax] bool, statics [R, smax] int32).
+
+    freq int32 [K, R, L], valid bool [K, R, L], attr int32 [R, L],
+    prefix int32 [R, L+1, 4], lens int32 [R], thr_table f32 [3, K].
+    smax: seed slots per read; once a read's are full, each further seed
+    overwrites the last (the JAX design at SMAX).
+    rounds, an int32 [R] CUDA tensor if given, receives each read's
+    dependent rounds in the kernel: one per window it ran and one per
+    round of 32 speculative steps."""
+    if not freq.is_cuda:
+        return scan_automaton_plain(freq, valid, attr, prefix, lens, thr_table,
+                                    start_kmer, up_bound, offsets, hh_ratio, smax)
+    outs = scan_automaton_outputs(freq.shape[1], freq.device, smax)
+    cuda.launch("scan_automaton", "lrsc_scan_automaton", *scan_automaton_args(
+        freq, valid, attr, prefix, lens, thr_table, start_kmer, up_bound, offsets,
+        hh_ratio, outs, rounds))
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -309,7 +351,7 @@ def estimate_best_plain(freq, n, starts, sizes, statics, pb_coverage: int,
     upper = pb_coverage >> 1
     lower = pb_coverage >> 2
     rl = torch.arange(R, device=dev)[:, None]
-    valid_seed = torch.arange(SMAX, dtype=I32, device=dev)[None, :] < n[:, None]
+    valid_seed = torch.arange(starts.shape[1], dtype=I32, device=dev)[None, :] < n[:, None]
     one = torch.ones_like(starts)
 
     def bfreq(k, pole_start):
@@ -351,22 +393,24 @@ def estimate_best_plain(freq, n, starts, sizes, statics, pb_coverage: int,
 
 
 def estimate_best(freq, n, starts, sizes, statics, pb_coverage: int):
-    """(start_k, end_k int32 [R, SMAX], out_of_range bool [R, SMAX]);
-    out_of_range lanes walked past the table and need a host redo."""
+    """(start_k, end_k int32 [R, S], out_of_range bool [R, S]) for the
+    S = starts.shape[1] seed slots; out_of_range lanes walked past the
+    table and need a host redo."""
     if not freq.is_cuda:
         return estimate_best_plain(freq, n, starts, sizes, statics, pb_coverage)
     name = "estimate_best"
     K, R, L = freq.shape
+    S = starts.shape[1]
     args = [cuda.check(name, freq, I32, (K, R, L)),
             cuda.check(name, n, I32, (R,)),
-            cuda.check(name, starts, I32, (R, SMAX)),
-            cuda.check(name, sizes, I32, (R, SMAX)),
-            cuda.check(name, statics, I32, (R, SMAX))]
+            cuda.check(name, starts, I32, (R, S)),
+            cuda.check(name, sizes, I32, (R, S)),
+            cuda.check(name, statics, I32, (R, S))]
     dev = freq.device
-    sk = torch.empty((R, SMAX), dtype=I32, device=dev)
-    ek = torch.empty((R, SMAX), dtype=I32, device=dev)
-    oor = torch.empty((R, SMAX), dtype=torch.bool, device=dev)
-    cuda.launch(name, "lrsc_estimate_best", *args, K, R, L, int(pb_coverage),
+    sk = torch.empty((R, S), dtype=I32, device=dev)
+    ek = torch.empty((R, S), dtype=I32, device=dev)
+    oor = torch.empty((R, S), dtype=torch.bool, device=dev)
+    cuda.launch(name, "lrsc_estimate_best", *args, K, R, L, S, int(pb_coverage),
                 sk.data_ptr(), ek.data_ptr(), oor.data_ptr())
     return sk, ek, oor
 
@@ -378,14 +422,22 @@ def estimate_best(freq, n, starts, sizes, statics, pb_coverage: int):
 def remove_hitchhiking_plain(n, starts, sizes, freqs, reps, radius: int,
                              hh_ratio: float):
     """The host loops qi<si with an early break when the gap exceeds the
-    radius; starts ascend, so the break equals the window mask."""
+    radius; starts ascend, so the break equals the window mask.  The
+    [R, S, S] pair masks are built a few reads at a time."""
+    R, S = starts.shape
+    step = max(1, (1 << 22) // (S * S))
+    if R > step:
+        return torch.cat([remove_hitchhiking_plain(
+            n[i : i + step], starts[i : i + step], sizes[i : i + step],
+            freqs[i : i + step], reps[i : i + step], radius, hh_ratio)
+            for i in range(0, R, step)])
     dev = starts.device
     ends = starts + sizes - 1
-    valid = torch.arange(SMAX, dtype=I32, device=dev)[None, :] < n[:, None]
+    valid = torch.arange(S, dtype=I32, device=dev)[None, :] < n[:, None]
     q_end = ends[:, :, None]
     s_start = starts[:, None, :]
-    iq = torch.arange(SMAX, device=dev)[None, :, None]
-    is_ = torch.arange(SMAX, device=dev)[None, None, :]
+    iq = torch.arange(S, device=dev)[None, :, None]
+    is_ = torch.arange(S, device=dev)[None, None, :]
     pair = (is_ > iq) & valid[:, :, None] & valid[:, None, :] & (
         s_start - q_end <= radius)
     fd = freqs[:, None, :].to(F32) / freqs[:, :, None].to(F32)
@@ -399,19 +451,20 @@ def remove_hitchhiking_plain(n, starts, sizes, freqs, reps, radius: int,
 
 
 def remove_hitchhiking(n, starts, sizes, freqs, reps, radius: int, hh_ratio: float):
-    """keep bool [R, SMAX]: valid seed slots that no repeat seed hitchhikes."""
+    """keep bool [R, S]: valid seed slots (of S = starts.shape[1]) that no
+    repeat seed hitchhikes."""
     if not starts.is_cuda:
         return remove_hitchhiking_plain(n, starts, sizes, freqs, reps, radius,
                                         hh_ratio)
     name = "remove_hitchhiking"
-    R = starts.shape[0]
+    R, S = starts.shape
     args = [cuda.check(name, n, I32, (R,)),
-            cuda.check(name, starts, I32, (R, SMAX)),
-            cuda.check(name, sizes, I32, (R, SMAX)),
-            cuda.check(name, freqs, I32, (R, SMAX)),
-            cuda.check(name, reps, torch.bool, (R, SMAX))]
-    keep = torch.empty((R, SMAX), dtype=torch.bool, device=starts.device)
+            cuda.check(name, starts, I32, (R, S)),
+            cuda.check(name, sizes, I32, (R, S)),
+            cuda.check(name, freqs, I32, (R, S)),
+            cuda.check(name, reps, torch.bool, (R, S))]
+    keep = torch.empty((R, S), dtype=torch.bool, device=starts.device)
     hh, inv_hh = hh_constants(hh_ratio)
-    cuda.launch(name, "lrsc_remove_hitchhiking", *args, R, int(radius), hh, inv_hh,
+    cuda.launch(name, "lrsc_remove_hitchhiking", *args, R, S, int(radius), hh, inv_hh,
                 keep.data_ptr())
     return keep

@@ -1,0 +1,271 @@
+"""scan_automaton, estimate_best, remove_hitchhiking and lf_extract of
+csrc/seedscan.cu and csrc/msa.cu, compiled for the host, equal their plain
+versions bit for bit.
+
+No card here: each source is compiled with g++ behind the CUDA shim of
+tests/test_torch_cuda_shim.py, blocks one at a time (the static shared
+arrays of seedscan.cu stand for the block's), and its C entries are called
+through ctypes with CPU pointers, the arguments built by the functions the
+wrappers launch with (ops/seedscan.py scan_automaton_args,
+ops/msa_kernels.py lf_extract_args).
+
+scan_automaton runs on the JAX-made chunks of tests/test_torch_seedscan.py:
+48 reads at ~9% error, and a 7168-column chunk whose clean 7 kb read
+overflows the 128 seed slots (slot 127 overwritten) beside a read with
+repeat and hitchhiked seeds; the three seed-slot kernels also run that
+chunk at the slot count the corrector sizes from its width, where the 7 kb
+read keeps every seed.  lf_extract runs grouped: both BWTs, groups
+with their own max_steps, rows that park at '$', N = 1, and an empty
+group.
+"""
+import numpy as np
+import pytest
+import torch
+
+from longreadselfcorrect_tpu_torch.core import alphabet as ab
+from longreadselfcorrect_tpu_torch.index.fmindex import FMIndex, IndexSet
+from longreadselfcorrect_tpu_torch.index import build
+from longreadselfcorrect_tpu_torch.ops import msa_kernels, seedscan
+
+from test_torch_cuda_shim import build_host
+from test_torch_seedscan import stages  # noqa: F401  (the JAX-made chunks)
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def seedscan_lib(tmp_path_factory):
+    return build_host("seedscan.cu", tmp_path_factory.mktemp("seedscan_shim"),
+                      ("lrsc_scan_automaton", "lrsc_estimate_best",
+                       "lrsc_remove_hitchhiking"), one_block=True)
+
+
+@pytest.fixture(scope="module")
+def msa_lib(tmp_path_factory):
+    return build_host("msa.cu", tmp_path_factory.mktemp("msa_shim"),
+                      ("lrsc_lf_extract",), one_block=True)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("chunk", ["main", "smax"])
+def test_scan_automaton_kernel_matches_plain(seedscan_lib, stages, chunk):
+    pp, st = stages
+    s = st[chunk]
+    ins = (_t(s["freq"]), _t(s["valid"]), _t(s["attr"]), _t(s["prefix"]), _t(s["lens"]),
+           _t(s["thr"]), pp.start_kmer_len, pp.kmer_len_up_bound, tuple(pp.offset),
+           float(pp.hh_ratio))
+    R = s["lens"].shape[0]
+    outs = seedscan.scan_automaton_outputs(R, "cpu")
+    for t in outs:
+        t.fill_(7)   # the kernel writes every slot
+    rounds = torch.zeros(R, dtype=torch.int32)
+    rc = seedscan_lib.lrsc_scan_automaton(
+        *seedscan.scan_automaton_args(*ins, outs, rounds, on_card=False), None)
+    assert rc == 0
+    want = seedscan.scan_automaton_plain(*ins)
+    for g, w in zip(outs, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    n = want[0]
+    if chunk == "main":
+        assert int(n.sum()) > 100
+    else:
+        assert int(n[0]) == seedscan.SMAX and bool(want[4][1, : int(n[1])].any())
+    # a read's rounds: a window started and at least one round of steps
+    # per seed, far fewer than its inner iterations
+    live = s["lens"] >= pp.start_kmer_len
+    assert (rounds.numpy()[live] >= 2 * n.numpy()[live]).all()
+    stats = {}
+    seedscan.scan_automaton_plain(*ins, stats=stats)
+    assert int(rounds.sum()) < stats["lane_steps"] // 4
+
+
+@pytest.mark.parametrize("chunk,slots", [("main", "jax"), ("smax", "jax"),
+                                         ("smax", "sized")])
+def test_seed_slot_kernels_match_plain(seedscan_lib, stages, chunk, slots):
+    """scan_automaton, estimate_best and remove_hitchhiking at the JAX
+    design's 128 slots, or at seed_slots of the chunk's width, which the
+    7 kb read of the smax chunk does not fill."""
+    pp, st = stages
+    s = st[chunk]
+    R, L = s["attr"].shape
+    smax = (seedscan.SMAX if slots == "jax"
+            else seedscan.seed_slots(L, pp.start_kmer_len, pp.offset))
+    freq = _t(s["freq"])
+    K = freq.shape[0]
+    ins = (freq, _t(s["valid"]), _t(s["attr"]), _t(s["prefix"]), _t(s["lens"]),
+           _t(s["thr"]), pp.start_kmer_len, pp.kmer_len_up_bound, tuple(pp.offset),
+           float(pp.hh_ratio))
+    outs = seedscan.scan_automaton_outputs(R, "cpu", smax)
+    for t in outs:
+        t.fill_(7)
+    assert seedscan_lib.lrsc_scan_automaton(
+        *seedscan.scan_automaton_args(*ins, outs, on_card=False), None) == 0
+    want = seedscan.scan_automaton_plain(*ins, smax=smax)
+    for g, w in zip(outs, want):
+        assert g.shape == (R, smax) or g.shape == (R,)
+        assert torch.equal(g, w)
+    n, starts, sizes, freqs, reps, statics = want
+
+    sk, ek = (torch.full((R, smax), 7, dtype=torch.int32) for _ in range(2))
+    oor = torch.ones((R, smax), dtype=torch.bool)
+    assert seedscan_lib.lrsc_estimate_best(
+        freq.data_ptr(), n.data_ptr(), starts.data_ptr(), sizes.data_ptr(),
+        statics.data_ptr(), K, R, L, smax, pp.pb_coverage, sk.data_ptr(), ek.data_ptr(),
+        oor.data_ptr(), None) == 0
+    for g, w in zip((sk, ek, oor),
+                    seedscan.estimate_best_plain(freq, n, starts, sizes, statics,
+                                                 pp.pb_coverage)):
+        assert torch.equal(g, w)
+
+    keep = torch.ones((R, smax), dtype=torch.bool)
+    hh, inv_hh = seedscan.hh_constants(float(pp.hh_ratio))
+    assert seedscan_lib.lrsc_remove_hitchhiking(
+        n.data_ptr(), starts.data_ptr(), sizes.data_ptr(), freqs.data_ptr(),
+        reps.data_ptr(), R, smax, pp.radius, hh, inv_hh, keep.data_ptr(), None) == 0
+    want_keep = seedscan.remove_hitchhiking_plain(n, starts, sizes, freqs, reps,
+                                                  pp.radius, float(pp.hh_ratio))
+    assert torch.equal(keep, want_keep)
+    if chunk == "smax":
+        assert (~keep[1, : int(n[1])]).any()   # hitchhikers were dropped
+        if slots == "sized":
+            assert seedscan.SMAX < int(n[0]) < smax   # every seed of the 7 kb read
+
+
+def test_remove_hitchhiking_kernel_past_128_slots(seedscan_lib):
+    """remove_hitchhiking on made-up records of up to 479 seeds a read
+    (ascending, some within the radius of each other, a third repeats):
+    the pairs past slot 128 decide as the plain version does."""
+    rng = np.random.default_rng(61)
+    R, smax, radius = 3, 480, 100
+    n = torch.tensor([300, 0, 479], dtype=torch.int32)
+    sizes = torch.from_numpy(rng.integers(15, 40, (R, smax)).astype(np.int32))
+    gaps = torch.from_numpy(rng.integers(0, 150, (R, smax)).astype(np.int32))
+    starts = torch.cumsum(sizes + gaps, dim=1, dtype=torch.int32) - sizes - gaps
+    freqs = torch.from_numpy(rng.integers(1, 400, (R, smax)).astype(np.int32))
+    reps = torch.from_numpy(rng.random((R, smax)) < 0.3)
+    keep = torch.ones((R, smax), dtype=torch.bool)
+    hh, inv_hh = seedscan.hh_constants(0.6)
+    assert seedscan_lib.lrsc_remove_hitchhiking(
+        n.data_ptr(), starts.data_ptr(), sizes.data_ptr(), freqs.data_ptr(),
+        reps.data_ptr(), R, smax, radius, hh, inv_hh, keep.data_ptr(), None) == 0
+    want = seedscan.remove_hitchhiking_plain(n, starts, sizes, freqs, reps, radius, 0.6)
+    assert torch.equal(keep, want)
+    dropped = (~want[0, :300]).nonzero()[:, 0]
+    assert int(dropped.max()) > 128 and (~want[2, 128:479]).any()
+
+
+@pytest.fixture(scope="module")
+def index():
+    rng = np.random.default_rng(202)
+    genome = "".join(rng.choice(list("ACGT"), size=5000))
+    reads = []
+    for i in range(120):
+        p = int(rng.integers(0, 5000 - 400))
+        r = genome[p : p + 400]
+        reads.append(ab.revcomp_str(r) if i % 2 else r)
+    fwd, rev = build.build_bwt_pair([ab.encode(r) for r in reads])
+    return IndexSet(bwt=FMIndex.from_symbols(fwd.symbols, fwd.num_strings, "cpu"),
+                    rbwt=FMIndex.from_symbols(rev.symbols, rev.num_strings, "cpu"))
+
+
+# (strand, roots, max_steps) per group
+GROUPS = {
+    "both-bwts": [("rbwt", np.arange(5, 40), 60), ("bwt", np.arange(3, 40), 450),
+                  ("bwt", np.arange(0, 37 * 97, 97), 1), ("rbwt", np.arange(900, 917), 300)],
+    "one-row": [("bwt", np.array([1234]), 77)],
+    "empty-group": [("rbwt", np.arange(40, 60), 120), ("bwt", np.arange(0), 50),
+                    ("bwt", np.arange(60, 62), 90)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(GROUPS))
+def test_lf_extract_kernel_matches_plain(msa_lib, index, case):
+    groups = GROUPS[case]
+    roots = torch.from_numpy(np.concatenate([r for _, r, _ in groups]).astype(np.int32))
+    group = torch.from_numpy(np.repeat(np.arange(len(groups), dtype=np.int8),
+                                       [len(r) for _, r, _ in groups]))
+    table = [(msa_kernels.STRANDS.index(strand), steps) for strand, _, steps in groups]
+    N, S = roots.shape[0], max(steps for _, steps in table)
+    mat = torch.full((N, S), 9, dtype=torch.int8)
+    lens = torch.full((N,), -1, dtype=torch.int32)
+    rc = msa_lib.lrsc_lf_extract(*msa_kernels.lf_extract_args(
+        index.bwt, index.rbwt, roots, group, table, mat, lens, on_card=False), None)
+    assert rc == 0
+    want_m, want_l = msa_kernels.lf_extract_groups_plain(index, roots, group, table)
+    assert torch.equal(mat, want_m) and torch.equal(lens, want_l)
+    # group by group, the one-group plain version
+    base = 0
+    for (strand, r, steps), (_, st) in zip(groups, table):
+        m, l = msa_kernels.lf_extract_plain(getattr(index, strand),
+                                            torch.from_numpy(r.astype(np.int32)), steps)
+        assert torch.equal(mat[base : base + len(r), :steps], m)
+        assert torch.equal(lens[base : base + len(r)], l)
+        base += len(r)
+    if case == "both-bwts":
+        assert (want_l[35:72] < 450).all()   # the 450-step rows park at "$"
+
+
+def test_scan_automaton_kernel_reads_past_a_mask_segment(seedscan_lib):
+    """Reads longer than the kernel's 8192-position mask segment: a 12 kb
+    read at ~9% error and a clean 9 kb one, their tables made by the
+    port's plain kmer_table_full / attributes from a 20 kb genome's
+    index; the automaton crosses one and two segment boundaries."""
+    from longreadselfcorrect_tpu_torch.core.correct import CorrectionParams
+    from longreadselfcorrect_tpu_torch.core.threshold import KmerThreshold
+    from longreadselfcorrect_tpu_torch.ops import scan
+
+    rng = np.random.default_rng(41)
+    genome = "".join(rng.choice(list("ACGT"), size=20000))
+    reads = []
+    for i in range(600):
+        p = int(rng.integers(0, len(genome) - 1000))
+        r = genome[p : p + 1000]
+        reads.append(ab.revcomp_str(r) if i % 2 else r)
+    fwd, rev = build.build_bwt_pair([ab.encode(r) for r in reads])
+    ix = IndexSet(bwt=FMIndex.from_symbols(fwd.symbols, fwd.num_strings, "cpu"),
+                  rbwt=FMIndex.from_symbols(rev.symbols, rev.num_strings, "cpu"))
+    noisy = []
+    for ch in genome[2000:13000]:
+        x = rng.random()
+        if x < 0.05:
+            noisy.append("ACGT"[int(rng.integers(0, 4))])
+        elif x < 0.07:
+            pass
+        elif x < 0.09:
+            noisy += [ch, "ACGT"[int(rng.integers(0, 4))]]
+        else:
+            noisy.append(ch)
+    seqs = ["".join(noisy), genome[10000:19000]]
+    L = 256 * ((max(map(len, seqs)) + 255) // 256)
+    assert L > 8192
+    mat = np.full((2, L), ab.PAD_RANK, np.int8)
+    lens = np.zeros(2, np.int32)
+    for i, s in enumerate(seqs):
+        e = ab.encode(s)
+        mat[i, : len(e)] = e
+        lens[i] = len(e)
+    params = CorrectionParams(pb_coverage=30, genome=10)
+    pp, _, _ = params.derived()
+    thresh = KmerThreshold(-1, 50, params.pb_coverage)
+    max_k = pp.kmer_len_up_bound + 1
+    reads_t, lens_t = torch.from_numpy(mat), torch.from_numpy(lens)
+    freq, valid = scan.kmer_table_full(ix, reads_t, lens_t, max_k)
+    prefix = torch.zeros((2, L + 1, 4), dtype=torch.int32)
+    torch.cumsum((reads_t[:, :, None] == torch.arange(1, 5, dtype=torch.int8)).to(torch.int32),
+                 dim=1, dtype=torch.int32, out=prefix[:, 1:])
+    attr = seedscan.attributes(freq[pp.scan_kmer_len], prefix, lens_t,
+                               float(thresh.get(2, pp.scan_kmer_len)), pp.scan_kmer_len)
+    thr = torch.from_numpy(np.ascontiguousarray(thresh.table[:, : max_k + 1]))
+    ins = (freq, valid, attr, prefix, lens_t, thr, pp.start_kmer_len, pp.kmer_len_up_bound,
+           tuple(pp.offset), float(pp.hh_ratio))
+    outs = seedscan.scan_automaton_outputs(2, "cpu")
+    assert seedscan_lib.lrsc_scan_automaton(
+        *seedscan.scan_automaton_args(*ins, outs, on_card=False), None) == 0
+    want = seedscan.scan_automaton_plain(*ins)
+    for g, w in zip(outs, want):
+        assert torch.equal(g, w)
+    n, starts = want[0], want[1]
+    assert int(n[0]) > 20 and int(starts[0, : int(n[0])].max()) > 8192

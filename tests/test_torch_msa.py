@@ -117,6 +117,22 @@ def test_lf_extract_plain_matches_jax(dix, monkeypatch, strand, roots, max_steps
         assert (got_l < max_steps).all() and (got_m[:, -1] == 0).all()
 
 
+def test_lf_extract_groups_plain_matches_jax(dix, monkeypatch):
+    """The grouped entry (one launch per multiple alignment on the card):
+    groups on both BWTs with their own max_steps, an empty one among
+    them, equal to the JAX lf_extract group by group."""
+    _, _, jdev, _, pdev = dix
+    calls = counting(monkeypatch, "lf_extract_plain")
+    jobs = [("rbwt", np.arange(5, 40), 60), ("bwt", np.arange(0), 30),
+            ("bwt", np.arange(3, 40), 450), ("rbwt", np.arange(0, 37 * 97, 97), 1)]
+    got = msa_kernels.lf_extract_groups(pdev, jobs)
+    assert len(calls) == 3   # the empty group is not extracted
+    for (strand, roots, steps), (m, l) in zip(jobs, got):
+        want_m, want_l = jmk.lf_extract(getattr(jdev, strand), roots, steps)
+        assert m.dtype == np.int8 and l.dtype == np.int64
+        assert np.array_equal(m, want_m) and np.array_equal(l, want_l), (strand, steps)
+
+
 def fill_lanes(genome):
     """test_msa.py:226-254's lanes (planted noise and indels, every third
     anchored at the ends as the rc call sites are), plus one lane whose
@@ -246,3 +262,28 @@ def test_batched_dp_route_matches_jax_host(repeat_corpus, monkeypatch):
             assert getattr(res, name) == getattr(want, name), (rid, name)
     assert any(r.dp_num > 0 for r in got)
     assert lf and fill
+
+
+def test_merged_launch_msa_matches_jax_host(repeat_corpus, monkeypatch):
+    """build_multiple_alignment with a CPU IndexSet as dev= extracts the
+    four root sets of its two seeds (different k) as one grouped call,
+    and equals the JAX host build_multiple_alignment, on queries that
+    carry the 40 bp element."""
+    genome, hix, dix, jhix = repeat_corpus
+    monkeypatch.setattr(msa, "LF_DEVICE_MIN", 0)
+    monkeypatch.setattr(msa, "FILL_DEVICE_MIN", 0)
+    grouped = counting(monkeypatch, "lf_extract_groups")
+    starts = {}
+    for i in range(len(genome) - 40):
+        starts.setdefault(genome[i : i + 40], []).append(i)
+    elem = max(starts.values(), key=len)
+    assert len(elem) >= 30
+    for p in elem[3:5]:
+        query = genome[p - 110 : p + 150]
+        ma_j = jmsa.build_multiple_alignment(query, 19, 17, 26, 0.65, 30, jhix)
+        n = len(grouped)
+        ma_p = msa.build_multiple_alignment(query, 19, 17, 26, 0.65, 30, hix, dev=dix)
+        assert len(grouped) == n + 1
+        assert ma_p.num_rows() == ma_j.num_rows() > 3
+        assert (ma_p.calculate_base_consensus(15, -1)
+                == ma_j.calculate_base_consensus(15, -1))

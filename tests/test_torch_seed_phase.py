@@ -4,7 +4,8 @@ search_seeds, field for field.
 Seeds are compared as tuples of ints, strings and bools (exact equality).
 The 48 corpus reads are ~1 kb, which gives at most a few dozen seeds per
 read, so none fills the 128 seed slots; the slot-overflow path is held
-against JAX in test_torch_seedscan.py (its 7 kb clean read fills them).
+against JAX in test_torch_seedscan.py (its 7 kb clean read fills them),
+and the corrector's wider slots for such a read against search_seeds below.
 """
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from longreadselfcorrect_tpu_torch.core.correct import CorrectionParams
 from longreadselfcorrect_tpu_torch.index import build
 from longreadselfcorrect_tpu_torch.index.pack import open_index
 from longreadselfcorrect_tpu_torch.io import fasta
+from longreadselfcorrect_tpu_torch.ops import seedscan
 
 from test_torch_seedscan import seedscan_corpus
 
@@ -80,3 +82,22 @@ def test_seed_phase_matches_jax_device_and_host(corpus):
             seq, hix, port.probe_params, port.thresh)], rid
         n_seeds += len(want_host)
     assert n_seeds > 100   # the corpus must actually exercise the scan
+
+
+def test_seed_phase_read_past_the_seed_slots_matches_host(corpus):
+    """A clean 7 kb stretch of the corpus genome has more seeds than the
+    JAX design's 128 seed slots hold (the automaton overwrites the last
+    slot once they are full): the corrector gives its chunk the slots
+    seed_slots sizes from the chunk's width, so the seed scan keeps every
+    seed and equals search_seeds', beside a 1 kb read."""
+    genome, reads = seedscan_corpus()
+    reads_, prefix, hix, dix = corpus
+    items = [("long", genome[3000:10000]), ("short", reads_[0])]
+    port = BatchedSelfCorrector(hix, dix, CorrectionParams(pb_coverage=20, genome=10))
+    pp = port.probe_params
+    assert seedscan.seed_slots(7168, pp.start_kmer_len, pp.offset) > seedscan.SMAX
+    got = [[_sig(s) for s in ss] for _, _, sl in port._device_seed_scan(items) for ss in sl]
+    want = [[_sig(s) for s in seeds.search_seeds(seq, hix, port.probe_params, port.thresh)]
+            for _, seq in items]
+    assert got == want
+    assert len(want[0]) > 128
