@@ -240,7 +240,7 @@ def phase_build():
     say(f"build: {len(paths)} libraries ({len(cuda.KERNELS)} kernels) for sm_90a "
         f"in {time.perf_counter() - t0:.2f}s")
     for lib, first in (("walk", "walk_steps<4>"), ("seedscan", "scan_automaton"),
-                       ("msa", "lf_extract")):
+                       ("msa", "lf_extract"), ("kmer_table", "kmer_table_full")):
         if lib in cuda.BUILD_LOGS:
             rep = ptxas_report(cuda.BUILD_LOGS[lib])
             say(f"build: {lib}.cu ptxas (kernel, registers, stack frame B, spill stores B, "
@@ -373,14 +373,24 @@ def phase_data():
     torch.cuda.synchronize()
     t8 = time.perf_counter() - t0
     ck = walk.walk_ck(hix.bwt.n)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     wx = walk.WalkIndex.build(dix, hix, ck)
     torch.cuda.synchronize()
     t12 = time.perf_counter() - t0
+    held = (torch.cuda.memory_allocated() - base) / 1e6
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e6
     say(f"data: walk interval tables: ck=8 {tuple(wc8.shape)} from the pack in "
         f"{t8:.3f}s; ck={ck} {tuple(wx.wcache.shape)} = "
-        f"{wx.wcache.numel() * 4 / 1e6:.1f} MB by {ck - walk.CACHE_K} level-ups on the "
-        f"card (+ saving wcache{ck}.npy) in {t12:.3f}s")
+        f"{wx.wcache.numel() * 4 / 1e6:.1f} MB and the pyramid of levels 1..{ck - 1} "
+        f"{tuple(wx.pyramid.shape)} = {wx.pyramid.numel() * 4 / 1e6:.1f} MB, by "
+        f"{ck - walk.CACHE_K} level-ups on the card (+ saving wcache{ck}.npy) in "
+        f"{t12:.3f}s; device memory held by the two {held:.1f} MB "
+        f"(torch.cuda.memory_allocated), peak during the build +{peak:.1f} MB "
+        f"(max_memory_allocated)")
+    check(wx.pyramid.numel() * 4 <= 100e6, "data: the pyramid is over 100 MB")
     # an error-free 7 kb segment of the genome, whose seeds overflow the
     # 128 seed slots of the automaton, and a 20 kb read at 8% error, whose
     # automaton crosses two of the kernel's 8192-position mask segments
@@ -389,8 +399,38 @@ def phase_data():
     genome = make_genome(np.random.default_rng(2026))
     long_read = noisify(np.random.default_rng(2029),
                         genome[LONG_START : LONG_START + LONG_LEN], 0.08)
-    return hix, dix, items, extra, dp, [("g7k", genome[SEG_START : SEG_START + SEG_LEN]),
-                                        ("n20k", long_read)]
+    return (hix, dix, items, extra, dp,
+            [("g7k", genome[SEG_START : SEG_START + SEG_LEN]), ("n20k", long_read)],
+            n_chunk(genome))
+
+
+def n_chunk(genome):
+    """64 reads of the genome at 8% error for phase 4 (rng seed 2030) that
+    the bench sets lack: N runs (rank 0) in the first 12 symbols of many
+    lanes and at a read's first position, reads of 1 to 24 bp, and a read
+    of 1536, the chunk's width."""
+    import numpy as np
+
+    rng = np.random.default_rng(2030)
+    out = []
+    for i in range(64):
+        if i == 0:
+            p = int(rng.integers(0, GENOME_LEN - 1536))
+            s = list(noisify(rng, genome[p : p + 2000], 0.08)[:1536])
+        elif i <= 7:
+            n = (1, 2, 5, 11, 12, 13, 24)[i - 1]
+            p = int(rng.integers(0, GENOME_LEN - n))
+            s = list(genome[p : p + n])
+        else:
+            p = int(rng.integers(0, GENOME_LEN - 1600))
+            s = list(noisify(rng, genome[p : p + int(rng.integers(200, 1400))], 0.08))
+        if i % 2 == 0 and len(s) > 1:
+            for q in rng.choice(len(s), size=min(len(s), 6), replace=False):
+                k = int(rng.integers(1, 4))
+                s[q : q + k] = ["N"] * len(s[q : q + k])
+            s[0] = "N" if i % 4 == 0 else s[0]
+        out.append((f"n{i}", "".join(s)))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -415,6 +455,30 @@ def time_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
+def device_ms(fn, reps=REPS):
+    """Median device time of fn's kernels over `reps` calls after one
+    warm-up: the events around each call are queued behind a ~1.5 ms sleep
+    kernel, so the host's work in the call (arguments, output tensors, the
+    launch) is done before the device reaches them, and the time between
+    them is the device's alone (time_ms's events take in that host time
+    when the call is shorter than it)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(3_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
 def max_abs_err(got, want) -> int:
     import torch
 
@@ -429,10 +493,12 @@ def max_abs_err(got, want) -> int:
 
 
 def rank_traffic(ix, reads, max_k, state=None, j0=1):
-    """(distinct index rows, rank queries) the k-mer table of this chunk
-    needs from level j0 (state: the lanes' intervals there; level 1's by
-    default) to max_k: two queries per live step of each still-valid
-    strand, as the kernel issues them."""
+    """(distinct index rows, rank queries, row loads) the k-mer table of
+    this chunk needs from level j0 (an int, or a tensor: each lane's own
+    level; state: the lanes' intervals there, level 1's by default) to
+    max_k: two queries per live step of each still-valid strand, as the
+    kernels issue them; a step whose two ends share a block loads one row
+    in kmer_table_full (rank.cuh update_interval_shared), two otherwise."""
     import torch
 
     from longreadselfcorrect_tpu_torch.ops import rank
@@ -442,18 +508,22 @@ def rank_traffic(ix, reads, max_k, state=None, j0=1):
     if state is None:
         state = rank.init_bi(ix, sym0.clamp(0, 4))
     state = list(state)
+    j0 = torch.as_tensor(j0, device=reads.device).expand(R, L)
     seen = {id(fm): torch.zeros(fm.blocks.shape[0], dtype=torch.bool,
                                 device=reads.device) for fm in (ix.rbwt, ix.bwt)}
-    queries = 0
-    for j in range(j0, max_k):
+    queries = loads = 0
+    for j in range(int(j0.min()), max_k):
         nxt = torch.full((R, L), 5, dtype=torch.long, device=reads.device)
         nxt[:, : L - j] = sym0[:, j:]
-        live = nxt < 5
+        live = (nxt < 5) & (j >= j0)
         s = nxt.clamp(0, 4)
         for fm, lo_i, sym in ((ix.rbwt, 0, s), (ix.bwt, 2, rank.comp(s))):
             lo, hi = state[lo_i], state[lo_i + 1]
             need = live & (lo <= hi)
             queries += 2 * int(need.sum())
+            same = torch.div(lo, fm.block, rounding_mode="floor") == torch.div(
+                hi + 1, fm.block, rounding_mode="floor")
+            loads += int((need & same).sum()) + 2 * int((need & ~same).sum())
             for idx in (lo[need] - 1, hi[need]):
                 q = torch.div(idx + 1, fm.block, rounding_mode="floor")
                 seen[id(fm)][q.clamp(0, fm.blocks.shape[0] - 1).long()] = True
@@ -461,7 +531,122 @@ def rank_traffic(ix, reads, max_k, state=None, j0=1):
             state[lo_i] = torch.where(live, nlo, lo)
             state[lo_i + 1] = torch.where(live, nhi, hi)
     rows = sum(int(m.sum()) for m in seen.values())
-    return rows, queries
+    return rows, queries, loads
+
+
+def pyramid_start(wx, reads, max_k):
+    """Each lane's start in kmer_table_full with the walk index's pyramid:
+    (c: its clean prefix, the leading symbols in 1..4 inside the row, at
+    most ck and max_k; the lanes' intervals at level max(c, 1); the
+    distinct pyramid entries the lanes read)."""
+    import torch
+
+    from longreadselfcorrect_tpu_torch.ops import rank
+
+    R, L = reads.shape
+    sym0 = reads.long()
+    ok = torch.ones((R, L), dtype=torch.bool, device=reads.device)
+    c = torch.zeros((R, L), dtype=torch.long, device=reads.device)
+    code = torch.zeros((R, L), dtype=torch.long, device=reads.device)
+    codes = []   # the code of each lane's first j symbols, j = 1..cmax
+    for i in range(min(wx.ck, max_k)):
+        s = torch.full((R, L), 5, dtype=torch.long, device=reads.device)
+        s[:, : L - i] = sym0[:, i:]
+        ok = ok & (s >= 1) & (s <= 4)
+        c += ok.long()
+        code = torch.where(ok, code * 4 + s - 1, code)
+        codes.append(code)
+    state = torch.stack(rank.init_bi(wx.ix, sym0.clamp(0, 4)), dim=-1)
+    entries = 0
+    for j in range(1, len(codes) + 1):
+        have = c >= j
+        entries += int(torch.unique(codes[j - 1][have]).numel())
+        at = c == j
+        state[at] = wx.level(j)[codes[j - 1][at]]
+    return c, tuple(state[..., i] for i in range(4)), entries
+
+
+def ladder_traffic(ix, wcache, ck, syms, n, table):
+    """(rank queries, row loads, distinct index rows) of LF ladders, each
+    the interval of syms[i, :n[i]] (symbols 1..4) appended left to right,
+    started from the ck-mer table where table and n >= ck, else from
+    level 1, both strands stepped raw as walk_prep steps them; a step's
+    two ends in one block load one row (rank.cuh update_interval_shared)."""
+    import torch
+
+    from longreadselfcorrect_tpu_torch.ops import rank
+
+    dev = syms.device
+    use_t = (n >= ck) & table
+    code = torch.zeros(syms.shape[0], dtype=torch.long, device=dev)
+    for j in range(ck):
+        code = code * 4 + (syms[:, j] - 1).clamp(0, 3)
+    t = wcache[torch.where(use_t, code, 0)]
+    st = list(rank.init_bi(ix, syms[:, 0]))
+    state = [torch.where(use_t, t[:, i], st[i]) for i in range(4)]
+    start = torch.where(use_t, ck, 1)
+    seen = {id(fm): torch.zeros(fm.blocks.shape[0], dtype=torch.bool, device=dev)
+            for fm in (ix.rbwt, ix.bwt)}
+    queries = loads = 0
+    for j in range(1, int(n.max())):
+        live = (j >= start) & (j < n)
+        s = syms[:, j]
+        for fm, lo_i, sym in ((ix.rbwt, 0, s), (ix.bwt, 2, rank.comp(s))):
+            lo, hi = state[lo_i], state[lo_i + 1]
+            queries += 2 * int(live.sum())
+            same = torch.div(lo, fm.block, rounding_mode="floor") == torch.div(
+                hi + 1, fm.block, rounding_mode="floor")
+            loads += int((live & same).sum()) + 2 * int((live & ~same).sum())
+            for idx in (lo[live] - 1, hi[live]):
+                q = torch.div(idx + 1, fm.block, rounding_mode="floor")
+                seen[id(fm)][q.clamp(0, fm.blocks.shape[0] - 1).long()] = True
+            nlo, nhi = rank.update_interval(fm, lo, hi, sym)
+            state[lo_i] = torch.where(live, nlo, lo)
+            state[lo_i + 1] = torch.where(live, nhi, hi)
+    return queries, loads, sum(int(m.sum()) for m in seen.values())
+
+
+def prep_traffic(wx, kargs):
+    """(rank queries, row loads, distinct index rows) of walk_prep's
+    ladders on these arguments (walk._prep_kernel's): the terminal windows
+    m < n_term, the chain slots CK + i <= init_k, the root where no slot
+    holds it (csrc/walk.cuh prep_task)."""
+    import torch
+
+    _, query, _, trg, n_term, init_k, mo, cfg, kbt, kbr, use_wc = kargs
+    CK, NC, dev = cfg.CK, cfg.NCHAIN, query.device
+    table = tuple(wx.wcache.shape) == (4 ** CK, 4)
+    q14 = query.long().clamp(1, 4)
+    t14 = trg.long().clamp(1, 4)
+    T, QW = q14.shape
+    ik, nt = init_k.long(), n_term.long().clamp(0, cfg.TMAX)
+    lo_len = CK if use_wc else 1
+    W = max(kbt, kbr, CK) + 1
+    j = torch.arange(W, device=dev)
+    rows, lens = [], []
+    # terminal windows
+    m = torch.arange(cfg.TMAX, device=dev)
+    keep = m[None, :] < nt[:, None]
+    tt, mm = keep.nonzero(as_tuple=True)
+    pos = (mm[:, None] + j[None, :]).clamp(max=t14.shape[1] - 1)
+    rows.append(t14[tt[:, None], pos])
+    lens.append(torch.clamp(torch.minimum(torch.full_like(tt, kbt), mo.long()[tt]), min=lo_len))
+    # chain slots and the roots no slot holds
+    i = torch.arange(NC, device=dev)
+    keep = (CK + i)[None, :] <= ik[:, None]
+    tc, ic = keep.nonzero(as_tuple=True)
+    start = ik[tc] - (CK + ic)
+    rows.append(q14[tc[:, None], (start[:, None] + j[None, :]).clamp(0, QW - 1)])
+    chain_n = torch.clamp(CK + ic, max=max(kbr, CK))
+    lens.append(chain_n)
+    root_n = torch.clamp(torch.clamp(ik, max=kbr), min=lo_len)
+    slot_n = torch.clamp(ik, max=max(kbr, CK))
+    reuse = (ik >= CK) & (ik - CK < NC) & (root_n == slot_n)
+    tr = (~reuse).nonzero(as_tuple=True)[0]
+    rows.append(q14[tr[:, None], j[None, :].clamp(max=QW - 1)])
+    lens.append(root_n[tr])
+    syms, n = torch.cat(rows), torch.cat(lens)
+    return ladder_traffic(wx.ix, wx.wcache, CK, syms, n, table)
 
 
 def bound(nbytes: float, nops: float):
@@ -491,6 +676,8 @@ def phase_kernels(corrector, sets):
     err = {k: 0 for k in SEED_KERNELS}
     rec = {}
     auto_chunks = []   # scan_automaton per chunk: set, ms, longest chain
+    table_chunks = []  # kmer_table_full per chunk
+    wx = corrector.wx
     cuda.reset_launches()
     chunks = [(name, ci, mat, lens_np) for name, items in sets
               for ci, (_, _, mat, lens_np) in enumerate(corrector._seed_chunks(items))]
@@ -504,12 +691,15 @@ def phase_kernels(corrector, sets):
 
         calls = {
             "kmer_table_full": (
-                lambda: scan.kmer_table_full(ix, reads, lens, max_k),
+                lambda: scan.kmer_table_full(ix, reads, lens, max_k, wx),
                 lambda: scan.kmer_table_full_plain(ix, reads, lens, max_k)),
         }
         freq, valid = calls["kmer_table_full"][0]()
-        err["kmer_table_full"] = max(err["kmer_table_full"], max_abs_err(
-            (freq, valid), calls["kmer_table_full"][1]()))
+        e = max_abs_err((freq, valid), calls["kmer_table_full"][1]())
+        err["kmer_table_full"] = max(err["kmer_table_full"], e)
+        table_chunks.append(dict(set=name, chunk=ci, L=L, err=e,
+                                 ms=round(time_ms(calls["kmer_table_full"][0]), 4),
+                                 device_ms=round(device_ms(calls["kmer_table_full"][0]), 4)))
         fscan = freq[pp.scan_kmer_len]
         calls["attributes"] = (
             lambda: seedscan.attributes(fscan, prefix, lens, rep_thr, pp.scan_kmer_len),
@@ -566,8 +756,13 @@ def phase_kernels(corrector, sets):
         if ci or name != sets[0][0]:
             continue
 
-        # chunk 0: times, and the least time the card needs for the work
-        rows, queries = rank_traffic(ix, reads, max_k)
+        # chunk 0: times, and the least time the card needs for the work;
+        # kmer_table_full's traffic from level 1 (the ladder alone) and from
+        # each lane's pyramid level
+        rows1, queries1, _ = rank_traffic(ix, reads, max_k)
+        c, st_c, entries = pyramid_start(wx, reads, max_k)
+        rows, queries, loads = rank_traffic(ix, reads, max_k, st_c, c.clamp(min=1))
+        ladder_ms = device_ms(lambda: scan.kmer_table_full(ix, reads, lens, max_k))
         nseeds = int(n.sum())
         lane_steps = auto_stats["lane_steps"]
         walk_steps = best_stats["walk_steps"]
@@ -575,7 +770,8 @@ def phase_kernels(corrector, sets):
             # reads + lens in, the two tables out, each touched index row
             # (128 symbols + one checkpoint word) read once; ops: one byte
             # compare per symbol of each query's row
-            "kmer_table_full": (R * L + 4 * R + K * R * L * 5 + rows * 132,
+            # the pyramid entries the lanes read, 16 bytes each
+            "kmer_table_full": (R * L + 4 * R + K * R * L * 5 + rows * 132 + entries * 16,
                                 queries * 128),
             "attributes": (4 * R * L + 16 * R * (L + 1) + 4 * R + 4 * R * L,
                            60 * R * L),
@@ -598,7 +794,12 @@ def phase_kernels(corrector, sets):
             b_ms, b_by = bound(*work[k])
             rec[k] = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
                       "bound_ms": b_ms, "bound_by": b_by}
+        rec["kmer_table_full"]["device_ms"] = table_chunks[-1]["device_ms"]
         rec["_shape"] = dict(R=R, L=L, K=K, slots=slots, rows=rows, queries=queries,
+                             row_loads=loads, pyramid_entries=entries,
+                             lanes_by_clean_prefix=hist(c.cpu().numpy()),
+                             from_level_1=dict(rows=rows1, queries=queries1,
+                                               device_ms_without_pyramid=round(ladder_ms, 4)),
                              lane_steps=lane_steps, walk_steps=walk_steps,
                              seeds=nseeds, chunks={n: sum(c[0] == n for c in chunks)
                                                    for n, _ in sets})
@@ -619,6 +820,10 @@ def phase_kernels(corrector, sets):
         "estimate_best and remove_hitchhiking ms at those slots): "
         + json.dumps(auto_chunks))
     rec["scan_automaton"]["chunks"] = auto_chunks
+    say("kernels: kmer_table_full per chunk (set, chunk, width, max_abs_err, ms, device "
+        "ms; the "
+        "walk index's pyramid at ck=" + str(wx.ck) + "): " + json.dumps(table_chunks))
+    rec["kmer_table_full"]["chunks"] = table_chunks
     bad = [k for k, r in rec.items() if not r["equal"]]
     check(not bad, f"kernels: {bad} differ from their plain versions")
     check(any(c["full"] for c in auto_chunks
@@ -693,6 +898,14 @@ def lane_fields(kernel, steps, ms):
                 smem_per_block=g["smem_per_block"])
 
 
+def hist(x) -> dict:
+    """{value: count} of an int array."""
+    import numpy as np
+
+    v, n = np.unique(np.asarray(x), return_counts=True)
+    return {int(a): int(b) for a, b in zip(v, n)}
+
+
 def phase_walks(corrector, items):
     """Each walk kernel against its plain version on the main path's
     shapes.  Returns {kernel: record}."""
@@ -708,10 +921,7 @@ def phase_walks(corrector, items):
     t_phase = time.perf_counter()
 
     # level-up 11 -> 12 (the last, largest level of the bench index)
-    base = walk.get_wcache(ix, corrector.ix, walk.CACHE_K)
-    st = tuple(base[:, i].contiguous() for i in range(4))
-    for _ in range(wx.ck - 1 - walk.CACHE_K):
-        st = walk.wcache_level_up(ix, *st)
+    st = tuple(wx.level(wx.ck - 1)[:, i].contiguous() for i in range(4))
     got = walk.wcache_level_up(ix, *st)
     with rank.RowTracker(ix) as rc:
         want, plain_ms = time_once(lambda: walk.wcache_level_up_plain(ix, *st))
@@ -743,11 +953,30 @@ def phase_walks(corrector, items):
     T = len(prim)
     io = (sum(t.numel() * t.element_size() for t in pargs[1:7])
           + sum(v.numel() * v.element_size() for v in got.values()))
+    # the kernel's ladders (csrc/walk.cuh prep_task); the plain version
+    # runs every ladder the JAX prep runs
+    queries, loads, rows = prep_traffic(wx, pargs)
     rec["walk_prep"] = dict(err=tensors_err(got, want),
                             ms=time_ms(lambda: walk._prep_kernel(*pargs)),
-                            plain_ms=plain_ms, bytes=io + rc.rows * 132,
-                            shape=f"T={T}, {rc.rows} index rows")
+                            plain_ms=plain_ms, bytes=io + rows * 132,
+                            shape=f"T={T}, {rows} index rows")
     del got, want
+    # the parts of the prep alone, in turns with the whole: the code rows
+    # with the tails and constants, the terminal windows' ladders, the
+    # chain ring's and the root's; device time (no host time in it)
+    parts = {}
+    for _ in range(2):
+        for pname, bits in (("all", walk.PREP_ALL), ("codes", walk.PREP_CODES),
+                            ("terminal", walk.PREP_TERM), ("chain_root", walk.PREP_CHAIN)):
+            ms = device_ms(lambda: walk._prep_kernel(*pargs, parts=bits))
+            parts[pname] = parts.get(pname, []) + [round(ms, 4)]
+    rec["walk_prep"]["device_ms"] = parts["all"][0]
+    say(f"walks: walk_prep on the bank (T={T}, kb_term {kbt}, kb_root {kbr}): device ms by "
+        f"part "
+        f"(two turns) {json.dumps(parts)}; rank queries {queries}, row loads {loads}, "
+        f"{rows} index rows (the plain version, every ladder of the JAX prep: "
+        f"{rc.queries} queries, {rc.rows} rows); n_term histogram "
+        f"{json.dumps(hist(a['n_term']))}; init_k histogram {json.dumps(hist(a['init_k']))}")
 
     # one superstep, and a walk to completion, of a 512-lane batch
     bcfg = replace(cfg, G=WALK_BATCH)
@@ -1154,11 +1383,12 @@ def phase_tables(corrector, hix, items, want):
             continue
 
         # chunk 0: times, and the least time the card needs for the work
-        rows_pool, q_pool = rank_traffic(ix, reads, pool[-1])
-        rows_full, q_full = rank_traffic(ix, reads, max_k)
+        rows_pool, q_pool, _ = rank_traffic(ix, reads, pool[-1])
+        rows_full, q_full, _ = rank_traffic(ix, reads, max_k)
         codes = scan.plane_codes(reads, ck)
         st = wx.wcache[codes.long()]
-        rows_pl, q_pl = rank_traffic(ix, reads, max_k, tuple(st[..., i] for i in range(4)), ck)
+        rows_pl, q_pl, _ = rank_traffic(ix, reads, max_k, tuple(st[..., i] for i in range(4)),
+                                        ck)
         n_codes = int(torch.unique(codes).numel())
         io = R * L + 4 * R      # reads and lens in
         work = {
@@ -1259,8 +1489,10 @@ def phase_correct(hix, dix, params, items, checks):
     torch.cuda.synchronize()
     t_tables = time.perf_counter() - t0
     corrector = BatchedSelfCorrector(hix, wx, params)
+    preps = []
     t0 = time.perf_counter()
-    results = run_stream(corrector, items)
+    with recording(walk, "prep", preps):
+        results = run_stream(corrector, items)
     dt = time.perf_counter() - t0
     launches = dict(cuda.LAUNCHES)
     step_cfgs = dict(walk.STEP_CONFIGS)
@@ -1282,12 +1514,26 @@ def phase_correct(hix, dix, params, items, checks):
     # this path's kernels; the MSA kernels are read on the DP path (phase 9)
     missing = [k for k in SEED_KERNELS + WALK_KERNELS if launches[k] <= 0]
     check(not missing, f"correct: kernels {missing} were not launched on the main path")
+    check(len(preps) == launches["walk_prep"], f"correct: {len(preps)} prep calls, "
+          f"{launches['walk_prep']} walk_prep launches")
+    prep = prep_launches(preps, "correct")
+    del preps
+    # the pack's level-12 table loaded on a later run: the levels below it
+    # extended again (three level-ups)
+    hix.__dict__.get("_kmer_caches", {}).clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    walk.WalkIndex.build(dix, hix, wx.ck)
+    torch.cuda.synchronize()
+    say(f"correct: tables from the pack's wcache{wx.ck}.npy, the pyramid's levels "
+        f"1..{wx.ck - 1} extended again: {time.perf_counter() - t0:.3f}s")
+    hix.__dict__["_kmer_caches"][(wx.ck, str(dix.device))] = (wx.pyramid, wx.wcache)
     new = [k for k in step_cfgs if k not in checks.steps]
     for k in new:
         checks.cover(k)
     if new:
         checks.report("correct")
-    return launches, wx
+    return launches, wx, prep
 
 
 # ---------------------------------------------------------------------------
@@ -1314,6 +1560,35 @@ def reached_dp(r) -> int:
     """The gaps of a read that went to the MSA/DP fallback (every gap that
     no FM walk closed; dp_num counts those whose MSA succeeded)."""
     return r.total_walk_num - r.fm_num
+
+
+# the arguments of walk.prep that walk._prep_kernel takes
+PREP_ARGS = (0, 1, 2, 3, 5, 6, 8, 16, 17, 18, 19)
+
+
+def prep_launches(log, phase):
+    """walk_prep against prep_plain on every walk.prep call of a pass
+    (recorded in log): the tasks, the route (bank: init_k >= CK everywhere,
+    the table from CK; else the JAX batch prep's ladders from level 1),
+    max_abs_err, device ms (median of 3), rank queries, row loads, index
+    rows."""
+    from longreadselfcorrect_tpu_torch.ops import walk
+
+    out = []
+    for args in log:
+        kargs = tuple(args[i] for i in PREP_ARGS)
+        err = tensors_err(walk._prep_kernel(*kargs), walk.prep_plain(*kargs))
+        q, ld, rows = prep_traffic(kargs[0], kargs)
+        out.append(dict(T=int(kargs[1].shape[0]), tasks=int((kargs[5] > 0).sum()),
+                        use_wcache=bool(kargs[10]), err=err,
+                        device_ms=round(device_ms(lambda: walk._prep_kernel(*kargs), reps=3), 4),
+                        queries=q, row_loads=ld, rows=rows))
+    say(f"{phase}: walk_prep on each of the pass's {len(out)} prep launches (T, tasks, "
+        f"use_wcache, max_abs_err, device ms, rank queries, row loads, index rows): "
+        + json.dumps(out))
+    check(all(r["err"] == 0 for r in out), f"{phase}: a walk_prep launch differs from "
+          "its plain version")
+    return out
 
 
 def phase_dp(hix, wx, params, items, checks):
@@ -1344,9 +1619,11 @@ def phase_dp(hix, wx, params, items, checks):
     cuda.reset_launches()
     walk.STEP_CONFIGS.clear()
     t0 = time.perf_counter()
+    preps = []
     with recording(msa_kernels, "lf_extract_groups", calls["lf"]), \
             recording(msa_kernels, "banded_fill", calls["fill"]), \
-            recording(msa, "build_multiple_alignment", calls["msa"]):
+            recording(msa, "build_multiple_alignment", calls["msa"]), \
+            recording(walk, "prep", preps):
         results = run_stream(corrector, items)
     dt = time.perf_counter() - t0
     launches = dict(cuda.LAUNCHES)
@@ -1376,12 +1653,16 @@ def phase_dp(hix, wx, params, items, checks):
     check(launches["lf_extract"] == len(calls["lf"]) <= len(calls["msa"]),
           f"dp: {launches['lf_extract']} lf_extract launches for {len(calls['lf'])} "
           f"grouped calls and {len(calls['msa'])} multiple alignments")
+    check(len(preps) == launches["walk_prep"], f"dp: {len(preps)} prep calls, "
+          f"{launches['walk_prep']} walk_prep launches")
+    prep = prep_launches(preps, "dp")
+    del preps
     new = [k for k in step_cfgs if k not in checks.steps]
     for k in new:
         checks.cover(k)
     if new:
         checks.report("dp")
-    return launches, calls
+    return launches, calls, prep
 
 
 # ---------------------------------------------------------------------------
@@ -1645,21 +1926,24 @@ def main() -> int:
     sys.path.insert(0, REPO)
     name, _ = phase_device()
     phase_build()
-    hix, dix, items, extra, dp, seg = phase_data()
+    hix, dix, items, extra, dp, seg, nchunk = phase_data()
 
     from longreadselfcorrect_tpu_torch.core.batch_correct import BatchedSelfCorrector
     from longreadselfcorrect_tpu_torch.core.correct import CorrectionParams
 
     params = CorrectionParams(pb_coverage=COVERAGE, genome=10)
     corrector = BatchedSelfCorrector(hix, dix, params)
-    rec = phase_kernels(corrector, [("8%", items), ("15%", dp), ("long", seg)])
+    rec = phase_kernels(corrector, [("8%", items), ("15%", dp), ("long", seg),
+                                    ("N", nchunk)])
     walks, checks = phase_walks(corrector, items)
     rec.update(walks)
     seeds6 = phase_seeds(corrector, hix, items, seg)
     tables, table_launches = phase_tables(corrector, hix, items, seeds6)
     rec.update(tables)
-    launches, wx = phase_correct(hix, dix, params, items, checks)
-    dp_launches, calls = phase_dp(hix, wx, params, dp, checks)
+    launches, wx, prep8 = phase_correct(hix, dix, params, items, checks)
+    dp_launches, calls, prep9 = phase_dp(hix, wx, params, dp, checks)
+    rec["walk_prep"]["max_abs_err"] = max([rec["walk_prep"]["err"]]
+                                          + [r["err"] for r in prep8 + prep9])
     rec.update(phase_msa(hix, dix, calls))
     t0 = time.perf_counter()
     phase_trace(hix, wx, params, items, "trace", tuple(KERNEL_INFO))

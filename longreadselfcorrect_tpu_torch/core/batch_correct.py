@@ -110,7 +110,7 @@ class BatchedSelfCorrector(SelfCorrector):
         for base, chunk, mat, lens in self._seed_chunks(items):
             dmat = torch.from_numpy(mat).to(self.device)
             dlens = torch.from_numpy(lens).to(self.device)
-            freq, valid = scan.kmer_table_full(self.dix, dmat, dlens, max_k)
+            freq, valid = scan.kmer_table_full(self.dix, dmat, dlens, max_k, self.wx)
             submitted.append((base, chunk, self._seed_records(freq, valid, dmat, dlens)))
         return submitted
 

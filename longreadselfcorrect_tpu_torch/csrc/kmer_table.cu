@@ -26,6 +26,18 @@
 // query reads the checkpoint word as one extra 32-byte sector either way,
 // and a fused copy would double the index's device memory.
 // Row 0 is the JAX table's constant level 0 (freq -1, valid false).
+//
+// kmer_table_full, the main path's table, starts each lane from the
+// interval-table pyramid of the walk index (ops/walk.py get_tables: the
+// interval of every j-mer for j = 1..ck, ck = 12 at the bench scale):
+// where reads[pos : pos+c] is ACGT, level j <= c is one independent 16-byte
+// load keyed by the j-mer's 2-bit code, so the ladder's first c - 1
+// dependent LF steps (four rank queries each) are gone.  From level c on
+// the lane runs the ladder, both strands' steps in one round of loads, one
+// index row for both ends where they share a block (rank.cuh
+// update_interval_shared).  Those levels, where a surviving lane's rows are
+// its own, take most of the time (PERF.md).  Without a pyramid
+// (ck = 0) every lane runs the ladder from level 1.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -66,7 +78,27 @@ __device__ __forceinline__ bool lane_of(const lrsc::BlockRank& fwd,
   return true;
 }
 
-__global__ void kmer_table_full_kernel(lrsc::BlockRank fwd, lrsc::BlockRank rev,
+// Levels 1..ck of the interval table of every j-mer (f_lo, f_hi, r_lo,
+// r_hi; code of a word = its symbols - 1 left to right, 2 bits each): the
+// levels below ck concatenated in `lower` (level j from row (4^j - 4) / 3),
+// level ck in `top`.  ck = 0: no table.
+struct Pyramid {
+  const int4* __restrict__ lower;
+  const int4* __restrict__ top;
+  int ck;
+};
+constexpr int kMaxPyramid = 12;  // 4^12 x 16 B = 268 MB at the top level
+
+__device__ __forceinline__ const int4* level_row(const Pyramid& pyr, int j, unsigned code) {
+  return j < pyr.ck ? pyr.lower + (((1u << (2 * j)) - 4u) / 3u) + code : pyr.top + code;
+}
+
+__device__ __forceinline__ void step_shared(const lrsc::BlockRank& fm, int sym, int& lo, int& hi,
+                                            bool live) {
+  lrsc::update_interval_shared(fm.blocks, fm.ckpt, fm.C, fm.nb, sym, lo, hi, live);
+}
+
+__global__ void kmer_table_full_kernel(lrsc::BlockRank fwd, lrsc::BlockRank rev, Pyramid pyr,
                                        const int8_t* __restrict__ reads,
                                        const int* __restrict__ lens, int R, int L,
                                        int max_k, int* __restrict__ freq,
@@ -74,13 +106,49 @@ __global__ void kmer_table_full_kernel(lrsc::BlockRank fwd, lrsc::BlockRank rev,
   Lane ln;
   if (!lane_of(fwd, rev, reads, lens, R, L, ln)) return;
   const size_t plane = (size_t)R * L;
+  auto emit = [&](int j, const lrsc::BiInterval& s) {
+    const bool fake = ln.p + j > ln.len;
+    freq[j * plane + ln.id] = fake ? -1 : s.size();
+    valid[j * plane + ln.id] = !fake && s.valid();
+  };
   freq[ln.id] = -1;
   valid[ln.id] = false;
-  lrsc::ladder(fwd, rev, ln.row, ln.p, L, ln.len, 1, max_k, ln.st,
-               [&](int j, bool fake, const lrsc::BiInterval& s) {
-                 freq[j * plane + ln.id] = fake ? -1 : s.size();
-                 valid[j * plane + ln.id] = !fake && s.valid();
-               });
+  if (max_k < 1) return;
+  // c: the lane's clean prefix, its leading symbols in 1..4 inside the row
+  // (at most ck and max_k); code: their 2-bit code
+  const int cmax = min(pyr.ck, max_k);
+  int c = 0;
+  unsigned code = 0;
+  for (; c < cmax && ln.p + c < L; ++c) {
+    const int s = ln.row[ln.p + c];
+    if (s < 1 || s > 4) break;
+    code = (code << 2) | (unsigned)(s - 1);
+  }
+  // levels 1..c: one independent load each
+  lrsc::BiInterval st = ln.st;  // level 1 by init_bi when c = 0
+#pragma unroll 4
+  for (int j = 1; j <= c; ++j) {
+    const int4 e = __ldg(level_row(pyr, j, code >> (2 * (c - j))));
+    st = lrsc::BiInterval{e.x, e.y, e.z, e.w};
+    emit(j, st);
+  }
+  int j = max(c, 1);
+  if (c == 0) emit(1, st);
+  // levels past c: the ladder of ladder.cuh (a symbol of rank 0 extends,
+  // PAD or the row's end freezes the state, an empty strand is not
+  // stepped); a lane with a strand to step steps both in one round of
+  // loads, a lane with none skips the step
+  for (; j < max_k; ++j) {
+    const int nxt = ln.p + j < L ? (int)ln.row[ln.p + j] : lrsc::kPadRank;
+    const bool live = nxt < lrsc::kPadRank;
+    const bool fv = live && st.f_lo <= st.f_hi, rv = live && st.r_lo <= st.r_hi;
+    if (fv || rv) {
+      const int s = min(max(nxt, 0), 4);
+      step_shared(fwd, s, st.f_lo, st.f_hi, fv);
+      step_shared(rev, lrsc::comp(s), st.r_lo, st.r_hi, rv);
+    }
+    emit(j + 1, st);
+  }
 }
 
 __global__ void kmer_table_wire_kernel(lrsc::BlockRank fwd, lrsc::BlockRank rev,
@@ -128,17 +196,23 @@ unsigned grid(int R, int L) {
 
 }  // namespace
 
+// pyr_lower, pyr_top: the pyramid's levels 1..ck-1 and ck (int32 [n, 4],
+// 16-byte aligned), ck in 0..12; ck = 0 takes no table.
 extern "C" int lrsc_kmer_table_full(const int8_t* f_blocks, const int* f_ckpt,
                                     const int* f_C, int f_nb, const int8_t* r_blocks,
                                     const int* r_ckpt, const int* r_C, int r_nb,
+                                    const int* pyr_lower, const int* pyr_top, int ck,
                                     const int8_t* reads, const int* lens, int R,
                                     int L, int max_k, int* freq, bool* valid,
                                     void* stream) {
+  if (ck < 0 || ck > kMaxPyramid) return (int)cudaErrorInvalidValue;
   if (grid(R, L) > 0) {
     kmer_table_full_kernel<<<grid(R, L), kThreads, 0, (cudaStream_t)stream>>>(
         lrsc::BlockRank{f_blocks, f_ckpt, f_C, f_nb},
-        lrsc::BlockRank{r_blocks, r_ckpt, r_C, r_nb}, reads, lens, R, L, max_k, freq,
-        valid);
+        lrsc::BlockRank{r_blocks, r_ckpt, r_C, r_nb},
+        Pyramid{reinterpret_cast<const int4*>(pyr_lower),
+                reinterpret_cast<const int4*>(pyr_top), ck},
+        reads, lens, R, L, max_k, freq, valid);
   }
   return (int)cudaGetLastError();
 }

@@ -69,6 +69,66 @@ __device__ __forceinline__ void update_interval(const int8_t* __restrict__ block
   hi = nhi;
 }
 
+// #bytes equal to `pat`'s among the first `rem` bytes of the 16 in w, with
+// no branch (rem <= 0 counts none)
+__device__ __forceinline__ int count_vec(const uint4& w, unsigned pat, int rem) {
+  const unsigned words[4] = {w.x, w.y, w.z, w.w};
+  int n = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int r = rem - 4 * k;
+    const unsigned keep = r >= 4 ? ~0u : r <= 0 ? 0u : (1u << (8 * r)) - 1u;
+    n += __popc(__vcmpeq4(words[k], pat) & keep);
+  }
+  return n >> 3;  // eight bits per equal byte
+}
+
+// update_interval's step, with one row load for both ends where it can:
+// when BWT[0..lo-1] and BWT[0..hi] end in one block (lo >> 7 == (hi+1) >> 7,
+// as nearly always once an interval holds a few dozen suffixes), its row
+// and checkpoint word are read once and both prefixes counted from them;
+// otherwise each end reads its own.  live = false loads nothing and leaves
+// [lo, hi] as it is.  Every load is predicated and issued before any count,
+// so a step costs one round of loads (occ's guarded loop can wait for each
+// 16-byte vector in turn), and the steps of two strands can be in flight
+// together.  The same values as update_interval.
+__device__ __forceinline__ void update_interval_shared(const int8_t* __restrict__ blocks,
+                                                       const int* __restrict__ ckpt,
+                                                       const int* __restrict__ C, int nb,
+                                                       int sym, int& lo, int& hi,
+                                                       bool live = true) {
+  const int pa = lo, pb = hi + 1;  // prefix lengths of the two ends
+  const int qa = pa >> 7, qb = pb >> 7;
+  const int ra = pa - (qa << 7), rb = pb - (qb << 7);
+  const bool same = qa == qb;
+  const int ia = min(max(qa, 0), nb - 1), ib = min(max(qb, 0), nb - 1);
+  const uint4* rowa = reinterpret_cast<const uint4*>(blocks + (size_t)ia * kBlock);
+  const uint4* rowb = reinterpret_cast<const uint4*>(blocks + (size_t)ib * kBlock);
+  const int needa = !live ? 0 : same ? max(ra, rb) : ra;  // symbols read from row a
+  const int needb = !live || same ? 0 : rb;               // and from row b
+  const int pc = live ? __ldg(C + sym) : 0;
+  const int cka = live ? __ldg(ckpt + (size_t)ia * 5 + sym) : 0;
+  const int ckb = live && !same ? __ldg(ckpt + (size_t)ib * 5 + sym) : cka;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  uint4 wa[kBlock / 16], wb[kBlock / 16];
+#pragma unroll
+  for (int v = 0; v < kBlock / 16; ++v) {
+    wa[v] = needa > 16 * v ? __ldg(rowa + v) : zero;
+    wb[v] = needb > 16 * v ? __ldg(rowb + v) : zero;
+  }
+  const unsigned pat = 0x01010101u * (unsigned)sym;
+  int ca = 0, cb = 0;
+#pragma unroll
+  for (int v = 0; v < kBlock / 16; ++v) {
+    ca += count_vec(wa[v], pat, ra - 16 * v);
+    cb += count_vec(same ? wa[v] : wb[v], pat, rb - 16 * v);
+  }
+  if (live) {
+    lo = pc + cka + ca;
+    hi = pc + ckb + cb - 1;
+  }
+}
+
 __device__ __forceinline__ int comp(int sym) { return sym == 0 ? 0 : 5 - sym; }
 
 }  // namespace lrsc

@@ -5,10 +5,12 @@
 //   code; four rank queries each.  Bound: the random index rows of the
 //   rank queries (one 128-byte row + a checkpoint word each), then the
 //   4 x 16 B per child written.
-// * walk_prep (walk.py:371 _prep_core via :586/:598/:1986): one block per
-//   task; its threads split the qcode rows, the terminal windows and the
-//   chain-ring slots; thread 0 does the root interval and the tails.
-//   Bound: the LF ladders' rank rows.
+// * walk_prep (walk.py:371 _prep_core via :586/:598/:1986): one warp per
+//   task (walk.cuh prep_task): the task's rows staged in shared memory,
+//   the code rows written by the whole warp, one lane per LF ladder whose
+//   output is not a constant.  Bound: the code rows written and the
+//   ladders' rank rows; a launch lasts about its longest ladder's chain of
+//   dependent LF steps (init_k - CK at most).
 // * walk_steps (walk.py:997 superstep, :1639 multistep, :1647
 //   run_to_completion, :1600 _reduce_results): one warp per gap lane loads
 //   the lane's WalkState row into shared memory, runs up to n supersteps
@@ -196,9 +198,16 @@ __global__ void wcache_level_up_kernel(Index ix, int n, const int* __restrict__ 
   o3[c] = w;
 }
 
-__global__ void walk_prep_kernel(Index ix, PrepIn P, PrepOut O, int T) {
-  const int t = blockIdx.x;
-  if (t < T) prep_task(ix, P, O, t, threadIdx.x, blockDim.x);
+constexpr int kPrepWarps = 4;  // tasks per block, one warp each
+
+__global__ void __launch_bounds__(kPrepWarps * 32)
+    walk_prep_kernel(Index ix, PrepIn P, PrepOut O, int T) {
+  extern __shared__ int4 prep_smem[];
+  const int w = threadIdx.x >> 5, t = blockIdx.x * kPrepWarps + w;
+  if (t >= T) return;
+  int8_t* rows = reinterpret_cast<int8_t*>(prep_smem) +
+                 (size_t)w * prep_row_bytes(P.QMAX, P.TMAX, P.KMAX);
+  prep_task(ix, P, O, t, threadIdx.x & 31, rows);
 }
 
 constexpr int kMaxWarps = 4;  // warps (gap lanes) per block
@@ -360,7 +369,19 @@ extern "C" int lrsc_walk_prep(void* const* p, const int* d, void* stream) {
   P.kb_term = a.num();
   P.kb_root = a.num();
   P.use_wcache = a.num();
-  if (T > 0) walk_prep_kernel<<<T, 64, 0, (cudaStream_t)stream>>>(ix, P, O, T);
+  P.table = a.num();
+  P.parts = a.num();
+  if (P.CK < 1 || P.CK > 15 || P.kb_term > P.KMAX + 1 || (P.use_wcache && !P.table))
+    return (int)cudaErrorInvalidValue;
+  const int smem = kPrepWarps * prep_row_bytes(P.QMAX, P.TMAX, P.KMAX);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        walk_prep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (T > 0)
+    walk_prep_kernel<<<(T + kPrepWarps - 1) / kPrepWarps, kPrepWarps * 32, smem,
+                       (cudaStream_t)stream>>>(ix, P, O, T);
   return (int)cudaGetLastError();
 }
 

@@ -161,10 +161,11 @@ __device__ __forceinline__ void lf_side(const Index& ix, int side, int sym, int&
     lf_r(ix, comp(sym), lo, hi);
 }
 
-// the walk-convention bi-interval extension (rank.extend_bi): append sym
+// the walk-convention bi-interval extension (rank.extend_bi): append sym;
+// each side reads one index row for both ends where they share a block
 __device__ __forceinline__ void extend_bi(const Index& ix, int sym, int* st) {
-  lf_f(ix, sym, st[0], st[1]);
-  lf_r(ix, comp(sym), st[2], st[3]);
+  update_interval_shared(ix.fb, ix.fck, ix.fC, ix.fnb, sym, st[0], st[1]);
+  update_interval_shared(ix.rb, ix.rck, ix.rC, ix.rnb, comp(sym), st[2], st[3]);
 }
 __device__ __forceinline__ void init_bi(const Index& ix, int sym, int* st) {
   st[0] = __ldg(ix.fC + sym);
@@ -174,7 +175,11 @@ __device__ __forceinline__ void init_bi(const Index& ix, int sym, int* st) {
   st[3] = __ldg(ix.rC + c + 1) - 1;
 }
 __device__ __forceinline__ void wcache_get(const Index& ix, int code, int* st) {
-  for (int q = 0; q < 4; ++q) st[q] = __ldg(ix.wcache + (size_t)code * 4 + q);
+  const int4 w = __ldg(reinterpret_cast<const int4*>(ix.wcache) + code);
+  st[0] = w.x;
+  st[1] = w.y;
+  st[2] = w.z;
+  st[3] = w.w;
 }
 
 __device__ __forceinline__ bool cutoff(int freq, int total, int maxf, bool m5,
@@ -1128,8 +1133,21 @@ struct Walker {
 };
 
 // ---------------------------------------------------------------------------
-// prep (_prep_core) of one task, split over `nthr` cooperating threads
+// prep (_prep_core) of one task, by one warp
 // ---------------------------------------------------------------------------
+//
+// A task's outputs: the qcode9/qcode5 rows, the tails, and the intervals of
+// up to TMAX terminal windows, NC chain-ring slots and the root, each one
+// ladder of LF steps.  A window m >= n_term and a slot CK + i > init_k only
+// give constants (1/0 and 0/-1), so their ladders are not run.  The root is
+// the ladder of slot init_k - CK (both read query[0:n] from position 0,
+// with the same n) whenever that slot exists, so it is taken from there.
+// The remaining ladders (at most n_term + init_k - CK + 2) go one to a
+// lane; the query and target rows are staged in shared memory first.
+// A ladder of n >= CK symbols starts from the ck-mer interval table
+// (wcache) at level CK, also where the JAX batch prep (use_wcache = 0)
+// climbs from level 1: both are the same LF steps over the same ACGT
+// symbols (the table is built by them), so the interval is the same.
 
 struct PrepOut {
   int *qcode9, *qcode5, *term_f, *term_r, *f_lo, *f_hi, *r_lo, *r_hi, *freq, *chain0,
@@ -1146,112 +1164,144 @@ struct PrepIn {
   const int* init_k;
   const int* min_overlap;
   int QMAX, TMAX, KMAX, CK, SS, kb_term, kb_root, use_wcache;
+  int table;  // the wcache holds every CK-mer
+  int parts;  // PREP_* bits: the parts of the prep a launch runs (timing variants)
 };
 
-__device__ void prep_task(const Index& ix, const PrepIn& P, const PrepOut& O, int t,
-                          int tid, int nthr) {
+constexpr int PREP_CODES = 1, PREP_TERM = 2, PREP_CHAIN = 4, PREP_ALL = 7;
+
+// the shared-memory bytes of one task's staged rows (16-byte multiple)
+__device__ __host__ __forceinline__ int prep_row_bytes(int QMAX, int TMAX, int KMAX) {
+  return (QMAX + TMAX + KMAX + 15) & ~15;
+}
+
+// the interval of the n >= 1 symbols src[off + j], j < n (the index
+// clamped into [0, lim], each symbol into 1..4), appended left to right.
+// One copy of this code serves windows, slots and the root: a copy inlined
+// for each kind made the launch several times slower (PERF.md)
+__device__ __forceinline__ void prep_ladder(const Index& ix, const PrepIn& P, const int8_t* src,
+                                            int off, int lim, int n, int* st) {
+  auto sym = [&](int j) { return clampi((int)src[clampi(off + j, 0, lim)], 1, 4); };
+  int from = 1;
+  if (P.table && n >= P.CK) {
+    int code = 0;
+    for (int j = 0; j < P.CK; ++j) code = (code << 2) | (sym(j) - 1);
+    wcache_get(ix, code, st);
+    from = P.CK;
+  } else {
+    init_bi(ix, sym(0), st);
+  }
+  for (int j = from; j < n; ++j) extend_bi(ix, sym(j), st);
+}
+
+__device__ void prep_task(const Index& ix, const PrepIn& P, const PrepOut& O, int t, int lane,
+                          int8_t* sq) {
   const int QMAX = P.QMAX, TMAX = P.TMAX, CK = P.CK, NC = P.KMAX - P.CK + 1;
   const int TW = TMAX + P.KMAX;
   const int ckmask = (1 << (2 * CK)) - 1;
+  int8_t* st_ = sq + QMAX;  // the target row
   const int8_t* q = P.query + (size_t)t * QMAX;
-  const int8_t* tr = P.trg + (size_t)t * TW;
-  const int qlen = P.q_len[t], ik = P.init_k[t], mo = P.min_overlap[t];
-  auto qc = [&](int p) { return p < QMAX ? (int)q[p] : kPad; };
-  auto q14 = [&](int p) { return clampi((int)q[clampi(p, 0, QMAX - 1)], 1, 4); };
-
-  // qcode9 / qcode5 rows
-  for (int p = tid; p < QMAX; p += nthr) {
-    int c9 = 0, c5 = 0;
-    for (int j = 0; j < P.SS; ++j) c9 = (c9 << 3) | qc(p + j);
-    for (int j = 0; j < 5; ++j) c5 = (c5 << 3) | qc(p + j);
-    O.qcode9[(size_t)t * QMAX + p] = p < qlen - P.SS + 1 ? c9 : -1;
-    O.qcode5[(size_t)t * QMAX + p] = p < qlen - 5 + 1 ? c5 : -1;
-  }
-  // terminal intervals: window m of trg, length min_overlap
-  for (int m = tid; m < TMAX; m += nthr) {
-    auto tch = [&](int j) { return clampi((int)tr[j + m], 1, 4); };
-    int st[4];
-    int from = 1;
-    if (P.use_wcache) {
-      int code = 0;
-      for (int j = 0; j < CK; ++j) code = ((code << 2) | (tch(j) - 1)) & ckmask;
-      wcache_get(ix, code, st);
-      from = CK;
-    } else {
-      init_bi(ix, tch(0), st);
-    }
-    for (int j = from; j < P.kb_term; ++j)
-      if (j < mo) extend_bi(ix, tch(j), st);
-    const bool valid = m < P.n_term[t];
-    int* tf = O.term_f + ((size_t)t * TMAX + m) * 2;
-    int* trr = O.term_r + ((size_t)t * TMAX + m) * 2;
-    tf[0] = valid ? st[0] : 1;
-    tf[1] = valid ? st[1] : 0;
-    trr[0] = valid ? st[2] : 1;
-    trr[1] = valid ? st[3] : 0;
-  }
-  // chain ring of the root leaf: suffixes of length CK + i
-  for (int i = tid; i < NC; i += nthr) {
-    const int ks = CK + i, start = ik - ks;
-    int st[4];
-    int from = 1;
-    if (P.use_wcache) {
-      int code = 0;
-      for (int j = 0; j < CK; ++j) code = ((code << 2) | (q14(start + j) - 1)) & ckmask;
-      wcache_get(ix, code, st);
-      from = CK;
-    } else {
-      init_bi(ix, q14(start), st);
-    }
-    for (int j = from; j < max(P.kb_root, CK); ++j)
-      if (j < ks) extend_bi(ix, q14(start + j), st);
-    const bool ok = ks <= ik;
-    int* c0 = O.chain0 + (size_t)t * 4 * NC;
-    c0[i] = ok ? st[0] : 0;
-    c0[NC + i] = ok ? st[1] : -1;
-    c0[2 * NC + i] = ok ? st[2] : 0;
-    c0[3 * NC + i] = ok ? st[3] : -1;
-  }
-  if (tid != 0) return;
-  // root leaf interval: query[:init_k] left to right
-  int st[4];
-  int from = 1;
-  if (P.use_wcache) {
-    int code = 0;
-    for (int j = 0; j < CK; ++j) code = ((code << 2) | (q14(j) - 1)) & ckmask;
-    wcache_get(ix, code, st);
-    from = CK;
+  if ((QMAX & 15) == 0) {
+    for (int i = lane; i < QMAX / 16; i += 32)
+      reinterpret_cast<int4*>(sq)[i] = __ldg(reinterpret_cast<const int4*>(q) + i);
   } else {
-    init_bi(ix, q14(0), st);
+    for (int i = lane; i < QMAX; i += 32) sq[i] = q[i];
   }
-  for (int j = from; j < P.kb_root; ++j)
-    if (j < ik) extend_bi(ix, q14(j), st);
-  O.f_lo[t] = st[0];
-  O.f_hi[t] = st[1];
-  O.r_lo[t] = st[2];
-  O.r_hi[t] = st[3];
-  O.freq[t] = isize(st[0], st[1]) + isize(st[2], st[3]);
-  // tail metadata
-  int t9 = 0, t8 = 0;
-  for (int i = 0; i < P.SS; ++i) {
-    const int pos = ik - P.SS + i;
-    if (pos >= 0) t9 = (t9 << 3) | (int)q[clampi(pos, 0, QMAX - 1)];
+  for (int i = lane; i < TW; i += 32) st_[i] = P.trg[(size_t)t * TW + i];
+  __syncwarp();
+  const int qlen = P.q_len[t], ik = P.init_k[t], mo = P.min_overlap[t];
+  const int nt = clampi(P.n_term[t], 0, TMAX);  // windows that are kept
+  const int nc = clampi(ik - CK + 1, 0, NC);    // chain slots that are kept
+  auto qc = [&](int p) { return p < QMAX ? (int)sq[p] : kPad; };
+  int* tf = O.term_f + (size_t)t * TMAX * 2;
+  int* tr = O.term_r + (size_t)t * TMAX * 2;
+  int* c0 = O.chain0 + (size_t)t * 4 * NC;
+
+  if (P.parts & PREP_CODES) {
+    // qcode9 / qcode5 rows
+    for (int p = lane; p < QMAX; p += 32) {
+      int c9 = 0, c5 = 0;
+      for (int j = 0; j < P.SS; ++j) c9 = (c9 << 3) | qc(p + j);
+      for (int j = 0; j < 5; ++j) c5 = (c5 << 3) | qc(p + j);
+      O.qcode9[(size_t)t * QMAX + p] = p < qlen - P.SS + 1 ? c9 : -1;
+      O.qcode5[(size_t)t * QMAX + p] = p < qlen - 5 + 1 ? c5 : -1;
+    }
+    // the skipped ladders' constants
+    for (int m = nt + lane; m < TMAX; m += 32) {
+      tf[2 * m] = 1;
+      tf[2 * m + 1] = 0;
+      tr[2 * m] = 1;
+      tr[2 * m + 1] = 0;
+    }
+    for (int i = nc + lane; i < NC; i += 32) {
+      c0[i] = 0;
+      c0[NC + i] = -1;
+      c0[2 * NC + i] = 0;
+      c0[3 * NC + i] = -1;
+    }
+    if (lane == 0) {
+      // tail metadata
+      int t9 = 0, t8 = 0;
+      for (int i = 0; i < P.SS; ++i) {
+        const int pos = ik - P.SS + i;
+        if (pos >= 0) t9 = (t9 << 3) | (int)sq[clampi(pos, 0, QMAX - 1)];
+      }
+      for (int i = 0; i < CK; ++i) {
+        const int pos = ik - CK + i;
+        if (pos >= 0) t8 = ((t8 << 2) | ((int)sq[clampi(pos, 0, QMAX - 1)] - 1)) & ckmask;
+      }
+      O.tail9[t] = t9;
+      O.tail8[t] = t8;
+      const int last = sq[clampi(ik - 1, 0, QMAX - 1)];
+      O.tail_letter[t] = (int8_t)last;
+      int cnt = 0;
+      for (int i = 0; i < P.KMAX; ++i) {
+        const int b = ik - 1 - i;
+        if (b < 0 || (int)sq[clampi(b, 0, QMAX - 1)] != last) break;
+        ++cnt;
+      }
+      O.tail_count[t] = cnt;
+    }
   }
-  for (int i = 0; i < CK; ++i) {
-    const int pos = ik - CK + i;
-    if (pos >= 0) t8 = ((t8 << 2) | ((int)q[clampi(pos, 0, QMAX - 1)] - 1)) & ckmask;
+
+  // the ladders' lengths, as the JAX prep's loops run them: from level CK
+  // (use_wcache) or 1 up to kb_term / kb_root, stopping at the task's own
+  // min_overlap / slot length / init_k
+  const int lo_len = P.use_wcache ? CK : 1;
+  const int term_n = max(lo_len, min(P.kb_term, mo));
+  auto chain_n = [&](int i) { return min(max(P.kb_root, CK), CK + i); };
+  const int root_n = max(lo_len, min(P.kb_root, ik));
+  const bool reuse = ik >= CK && ik - CK < NC && root_n == chain_n(ik - CK);
+  const int n_slot = (P.parts & PREP_CHAIN) ? nc : 0;
+  const int n_chain = (P.parts & PREP_CHAIN) ? nc + (reuse ? 0 : 1) : 0;
+  const int n_items = n_chain + ((P.parts & PREP_TERM) ? nt : 0);
+  for (int it = lane; it < n_items; it += 32) {
+    // chain slot i (the suffix of query[0:init_k] of length CK + i), the
+    // root (where no slot holds it), or terminal window m (trg[m : ...])
+    const bool slot = it < n_slot, window = it >= n_chain;
+    const int m = it - n_chain;
+    int st[4];
+    prep_ladder(ix, P, window ? st_ : sq, slot ? ik - (CK + it) : window ? m : 0,
+                window ? TW - 1 : QMAX - 1, slot ? chain_n(it) : window ? term_n : root_n, st);
+    if (slot) {
+      c0[it] = st[0];
+      c0[NC + it] = st[1];
+      c0[2 * NC + it] = st[2];
+      c0[3 * NC + it] = st[3];
+      if (!reuse || it != ik - CK) continue;
+    } else if (window) {
+      tf[2 * m] = st[0];
+      tf[2 * m + 1] = st[1];
+      tr[2 * m] = st[2];
+      tr[2 * m + 1] = st[3];
+      continue;
+    }
+    O.f_lo[t] = st[0];
+    O.f_hi[t] = st[1];
+    O.r_lo[t] = st[2];
+    O.r_hi[t] = st[3];
+    O.freq[t] = isize(st[0], st[1]) + isize(st[2], st[3]);
   }
-  O.tail9[t] = t9;
-  O.tail8[t] = t8;
-  O.tail_letter[t] = q[clampi(ik - 1, 0, QMAX - 1)];
-  const int c0 = q[clampi(ik - 1, 0, QMAX - 1)];
-  int cnt = 0;
-  for (int i = 0; i < P.KMAX; ++i) {
-    const int b = ik - 1 - i;
-    if (b < 0 || (int)q[clampi(b, 0, QMAX - 1)] != c0) break;
-    ++cnt;
-  }
-  O.tail_count[t] = cnt;
 }
 
 }  // namespace walk

@@ -33,6 +33,7 @@ class RowTracker:
         with RowTracker(ix) as rt:
             ...                  # plain versions
         rt.rows                  # distinct rows of ix read
+        rt.queries               # rank queries made
 
     The rows a kernel making the same queries must move (a measuring aid;
     the plain versions only)."""
@@ -43,6 +44,7 @@ class RowTracker:
         self.seen = {id(fm): torch.zeros(fm.blocks.shape[0], dtype=torch.bool,
                                          device=fm.blocks.device)
                      for fm in (ix.rbwt, ix.bwt)}
+        self.queries = 0
 
     def __enter__(self) -> "RowTracker":
         RowTracker.active = self
@@ -55,6 +57,7 @@ class RowTracker:
         seen = self.seen.get(id(fm))
         if seen is not None:
             seen[q.reshape(-1)] = True
+            self.queries += q.numel()
 
     @property
     def rows(self) -> int:

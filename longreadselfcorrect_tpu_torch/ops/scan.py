@@ -10,7 +10,9 @@ The counterparts of the JAX package's ops/scan.py, each a wrapper that
 launches a kernel for CUDA tensors and runs its ``*_plain`` twin, the
 lockstep transcript of the JAX function, for CPU tensors:
 
-* ``kmer_table_full``   every k in 1..max_k (csrc/kmer_table.cu);
+* ``kmer_table_full``   every k in 1..max_k (csrc/kmer_table.cu), a lane's
+  levels up to its first non-ACGT symbol (at most ck) read from the walk
+  index's interval-table pyramid;
 * ``kmer_table_wire``   the same table as int16 freq and valid packed 8
   k-levels per byte (csrc/kmer_table.cu); ``unpack_valid_bits`` undoes
   the packing on the host;
@@ -32,6 +34,7 @@ from . import cuda, rank
 
 I32 = torch.int32
 MAX_POOL = 16      # pool sizes a kmer_freq_scan launch takes (kmer_table.cu)
+MAX_PYRAMID = 12   # deepest interval-table pyramid kmer_table_full takes (kmer_table.cu)
 PLANE_WORDS = 4    # 32-symbol words per plane of a 128-symbol block
 PLANE_ROW = 3 * PLANE_WORDS + 5
 
@@ -83,7 +86,7 @@ def kmer_table_full_plain(ix: IndexSet, reads: torch.Tensor, lengths: torch.Tens
     return torch.stack(freqs), torch.stack(valids)
 
 
-def _index_args(name: str, ix: IndexSet, reads: torch.Tensor) -> list:
+def _index_args(name: str, ix: IndexSet, reads: torch.Tensor, on_card: bool = True) -> list:
     """The kernel arguments of the index pair, RBWT first."""
     out = []
     for fm in (ix.rbwt, ix.bwt):
@@ -91,37 +94,72 @@ def _index_args(name: str, ix: IndexSet, reads: torch.Tensor) -> list:
             raise ValueError(f"{name}: the kernel takes 128-symbol blocks, got {fm.block}")
         if fm.blocks.data_ptr() % 16:
             raise ValueError(f"{name}: blocks must be 16-byte aligned")
-        out += [cuda.check(name, fm.blocks, torch.int8),
-                cuda.check(name, fm.ckpt, I32, (fm.blocks.shape[0], 5)),
-                cuda.check(name, fm.C, I32, (6,)), fm.blocks.shape[0]]
+        out += [cuda.check(name, fm.blocks, torch.int8, on_card=on_card),
+                cuda.check(name, fm.ckpt, I32, (fm.blocks.shape[0], 5), on_card=on_card),
+                cuda.check(name, fm.C, I32, (6,), on_card=on_card), fm.blocks.shape[0]]
     if reads.device != ix.rbwt.blocks.device:
         raise ValueError(f"{name}: reads on {reads.device}, index on {ix.rbwt.blocks.device}")
     return out
 
 
-def _read_args(name: str, reads: torch.Tensor, lengths: torch.Tensor) -> list:
+def _read_args(name: str, reads: torch.Tensor, lengths: torch.Tensor,
+               on_card: bool = True) -> list:
     R, L = reads.shape
-    return [cuda.check(name, reads, torch.int8), cuda.check(name, lengths, I32, (R,)),
-            R, L]
+    return [cuda.check(name, reads, torch.int8, on_card=on_card),
+            cuda.check(name, lengths, I32, (R,), on_card=on_card), R, L]
 
 
 def kmer_table_full(ix: IndexSet, reads: torch.Tensor, lengths: torch.Tensor,
-                    max_k: int):
+                    max_k: int, levels=None):
     """freq int32 [max_k+1, R, L] (-1 where fake), valid bool [max_k+1, R, L].
 
     reads int8 [R, L] rank symbols padded with PAD_RANK, lengths int32 [R].
+    levels: the walk index over ix (ops/walk.WalkIndex: its interval-table
+    pyramid and ck), from which the kernel reads each lane's levels up to
+    its first non-ACGT symbol or ck; None runs every lane's ladder from
+    level 1.  The table is the same either way.
     CUDA tensors launch the kernel; CPU tensors take the plain version.
     """
     if not reads.is_cuda:
         return kmer_table_full_plain(ix, reads, lengths, max_k)
-    name = "kmer_table_full"
     R, L = reads.shape
-    args = _index_args(name, ix, reads) + _read_args(name, reads, lengths)
     freq = torch.empty((max_k + 1, R, L), dtype=I32, device=reads.device)
     valid = torch.empty((max_k + 1, R, L), dtype=torch.bool, device=reads.device)
-    cuda.launch(name, "lrsc_kmer_table_full", *args, max_k, freq.data_ptr(),
-                valid.data_ptr())
+    cuda.launch("kmer_table_full", "lrsc_kmer_table_full",
+                *kmer_table_full_args(ix, reads, lengths, max_k, levels, freq, valid))
     return freq, valid
+
+
+def kmer_table_full_args(ix: IndexSet, reads, lengths, max_k: int, levels, freq, valid,
+                         on_card: bool = True) -> list:
+    """The arguments of lrsc_kmer_table_full but the stream (on_card=False
+    takes CPU tensors: the C entry compiled for the host, in the tests)."""
+    name = "kmer_table_full"
+    K = max_k + 1
+    R, L = reads.shape
+    out = [cuda.check(name, t, dt, (K, R, L), on_card=on_card)
+           for t, dt in ((freq, I32), (valid, torch.bool))]
+    return (_index_args(name, ix, reads, on_card) + _pyramid_args(name, levels, reads, on_card)
+            + _read_args(name, reads, lengths, on_card) + [max_k] + out)
+
+
+def _pyramid_args(name: str, levels, reads: torch.Tensor, on_card: bool = True) -> list:
+    """The kernel arguments of a walk index's pyramid: its levels below ck,
+    level ck (the wcache) and ck; (0, 0, 0) for none."""
+    if levels is None:
+        return [0, 0, 0]
+    ck = levels.ck
+    if not 1 <= ck <= MAX_PYRAMID:
+        raise ValueError(f"{name}: the kernel takes a pyramid of 1..{MAX_PYRAMID} levels, "
+                         f"got ck={ck}")
+    out = []
+    for t, rows in ((levels.pyramid, (4 ** ck - 4) // 3), (levels.wcache, 4 ** ck)):
+        if t.device != reads.device:
+            raise ValueError(f"{name}: pyramid on {t.device}, reads on {reads.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: pyramid tables must be 16-byte aligned")
+        out.append(cuda.check(name, t, I32, (rows, 4), on_card=on_card))
+    return out + [ck]
 
 
 # ---------------------------------------------------------------------------

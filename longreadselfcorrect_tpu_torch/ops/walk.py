@@ -89,11 +89,14 @@ class WalkIndex:
     """The device index for the walk: the {BWT, RBWT} pair plus the
     walk-convention bi-interval of every ck-mer (wcache i32 [4^ck, 4],
     columns f_lo, f_hi, r_lo, r_hi; code of a word = its chars left to
-    right, 2 bits each)."""
+    right, 2 bits each) and of every shorter word: pyramid i32
+    [(4^ck - 4) / 3, 4], levels 1..ck-1 one after another (level j from
+    row (4^j - 4) / 3), which the seed phase's kmer_table_full reads."""
 
     ix: IndexSet
     wcache: torch.Tensor
     ck: int
+    pyramid: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -101,7 +104,17 @@ class WalkIndex:
 
     @staticmethod
     def build(ix: IndexSet, host_ix, ck: int = CACHE_K, reuse: bool = True) -> "WalkIndex":
-        return WalkIndex(ix=ix, wcache=get_wcache(ix, host_ix, ck, reuse), ck=ck)
+        pyramid, wcache = get_tables(ix, host_ix, ck, reuse)
+        return WalkIndex(ix=ix, wcache=wcache, ck=ck, pyramid=pyramid)
+
+    def level(self, j: int) -> torch.Tensor:
+        """The interval table of every j-mer, i32 [4^j, 4], 1 <= j <= ck."""
+        if not 1 <= j <= self.ck:
+            raise ValueError(f"level {j} is outside 1..{self.ck}")
+        if j == self.ck:
+            return self.wcache
+        a = (4 ** j - 4) // 3
+        return self.pyramid[a : a + 4 ** j]
 
 
 def walk_ck(n_symbols: int) -> int:
@@ -111,51 +124,79 @@ def walk_ck(n_symbols: int) -> int:
     return 12 if n_symbols > (1 << 24) else CACHE_K
 
 
-def build_kmer_caches(host_ix) -> np.ndarray:
-    """Host interval table of all CACHE_K-mers, built level by level over
-    the 4-ary trie (each level one batched LF over 4^k lanes)."""
+def build_kmer_levels(host_ix, k: int) -> list[np.ndarray]:
+    """Host interval tables of all j-mers, j = 1..k, built level by level
+    over the 4-ary trie (each level one batched LF over 4^j lanes)."""
     sym1 = np.arange(1, 5, dtype=np.int64)
     state = list(host_ix.init_bi(sym1))
-    for _ in range(CACHE_K - 1):
+    levels = [np.stack(state, axis=1).astype(np.int32)]
+    for _ in range(k - 1):
         n = len(state[0])
         rep = [np.repeat(x, 4) for x in state]
         csym = np.tile(sym1, n)
         state = list(host_ix.extend_bi(tuple(rep), csym))
-    return np.stack(state, axis=1).astype(np.int32)
+        levels.append(np.stack(state, axis=1).astype(np.int32))
+    return levels
+
+
+def build_kmer_caches(host_ix) -> np.ndarray:
+    """Host interval table of all CACHE_K-mers (the trie's last level)."""
+    return build_kmer_levels(host_ix, CACHE_K)[-1]
 
 
 def get_wcache(ix: IndexSet, host_ix, ck: int, reuse: bool = True) -> torch.Tensor:
-    """wcache for word length ck on ix's device.
+    """wcache for word length ck on ix's device (get_tables' level ck)."""
+    return get_tables(ix, host_ix, ck, reuse)[1]
 
-    The CACHE_K table comes from the pack (``host_ix._kmer_cache8``) or is
-    built on the host; deeper tables are CACHE_K extended level by level on
-    the device (wcache_level_up) and persisted as ``wcache{ck}.npy`` beside
-    the pack when its directory is known, and loaded from there next time
-    unless the pack was rewritten after it.  reuse=False builds a deeper
-    table anew (and rewrites its file) even when one is at hand."""
+
+def get_tables(ix: IndexSet, host_ix, ck: int, reuse: bool = True):
+    """(pyramid, wcache) for word length ck on ix's device: the interval
+    tables of levels 1..ck-1 one after another, and of level ck.
+
+    Levels up to CACHE_K come from the host trie, the CACHE_K table from
+    the pack (``host_ix._kmer_cache8``) where it is there; deeper levels
+    are CACHE_K's extended level by level on the device (wcache_level_up).
+    The level-ck table is persisted as ``wcache{ck}.npy`` beside the pack
+    when its directory is known, and loaded from there next time unless
+    the pack was rewritten after it (then only the levels below ck are
+    extended on the device).  reuse=False builds the tables anew (and
+    rewrites the file) even when they are at hand."""
     caches = host_ix.__dict__.setdefault("_kmer_caches", {})
     key = (ck, str(ix.device))
     if reuse and key in caches:
         return caches[key]
     pack_dir = getattr(host_ix, "pack_dir", None)
     path = None if pack_dir is None else os.path.join(pack_dir, f"wcache{ck}.npy")
-    if ck == CACHE_K:
-        wc = getattr(host_ix, "_kmer_cache8", None)
-        if wc is None:
-            wc = host_ix._kmer_cache8 = build_kmer_caches(host_ix)
-        out = torch.from_numpy(np.array(wc, np.int32)).to(ix.device)
-    elif reuse and path is not None and _newer_than_pack(path, pack_dir):
-        out = torch.from_numpy(np.load(path)).to(ix.device)
-    else:
-        base = get_wcache(ix, host_ix, CACHE_K)
-        st = tuple(base[:, i].contiguous() for i in range(4))
-        for _ in range(ck - CACHE_K):
-            st = wcache_level_up(ix, *st)
-        out = torch.stack(st, dim=1).contiguous()
-        if path is not None:
-            np.save(path, out.cpu().numpy())
-    caches[key] = out
-    return out
+    dev = ix.device
+
+    def up(a):
+        return torch.from_numpy(np.array(a, np.int32)).to(dev)
+
+    base_k = min(ck, CACHE_K)
+    wc8 = getattr(host_ix, "_kmer_cache8", None) if base_k == CACHE_K else None
+    host = build_kmer_levels(host_ix, base_k if wc8 is None else base_k - 1)
+    if wc8 is not None:
+        host.append(wc8)
+    elif base_k == CACHE_K:
+        host_ix._kmer_cache8 = host[-1]
+    levels = [up(a) for a in host]
+    top = None
+    if ck > CACHE_K and reuse and path is not None and _newer_than_pack(path, pack_dir):
+        top = torch.from_numpy(np.load(path)).to(dev)
+    st = tuple(levels[-1][:, i].contiguous() for i in range(4))
+    for k in range(CACHE_K + 1, ck + 1):
+        if k == ck and top is not None:
+            break
+        st = wcache_level_up(ix, *st)
+        levels.append(torch.stack(st, dim=1).contiguous())
+    if top is None:
+        top = levels[-1]
+        if ck > CACHE_K and path is not None:
+            np.save(path, top.cpu().numpy())
+    pyramid = (torch.cat(levels[: ck - 1]) if ck > 1
+               else torch.zeros((0, 4), dtype=torch.int32, device=dev))
+    caches[key] = (pyramid, top)
+    return caches[key]
 
 
 def _newer_than_pack(path: str, pack_dir: str) -> bool:
@@ -522,34 +563,61 @@ def prep_plain(wx: WalkIndex, query, q_len, trg, n_term, init_k, min_overlap,
 
 
 _PREP_OUT = ("qcode9", "qcode5", "term_f", "term_r") + ROOT_FIELDS
+# parts of walk_prep a launch runs (csrc/walk.cuh PREP_*): the code rows, the
+# terminal windows, the chain ring with the root and tails; a launch of
+# fewer than all leaves the other outputs unwritten (timing variants)
+PREP_CODES, PREP_TERM, PREP_CHAIN, PREP_ALL = 1, 2, 4, 7
+
+
+def prep_outputs(T: int, cfg: WalkConfig, dev) -> dict:
+    """Empty output tensors of walk_prep for T tasks."""
+    shapes = {"qcode9": (T, cfg.QMAX), "qcode5": (T, cfg.QMAX),
+              "term_f": (T, cfg.TMAX, 2), "term_r": (T, cfg.TMAX, 2),
+              "chain0": (T, 4, cfg.NCHAIN)}
+    return {k: torch.empty(shapes.get(k, (T,)),
+                           dtype=I8 if k == "tail_letter" else I32, device=dev)
+            for k in _PREP_OUT}
+
+
+def prep_args(wx: WalkIndex, query, q_len, trg, n_term, init_k, min_overlap,
+              cfg: WalkConfig, kb_term: int, kb_root: int, use_wcache: bool,
+              out: dict, parts: int = PREP_ALL, on_card: bool = True):
+    """(pointer array, int array) of lrsc_walk_prep: the inputs, the
+    outputs `out` (prep_outputs) and the launch's dimensions."""
+    name = "walk_prep"
+    T = query.shape[0]
+    ins = [cuda.check(name, query, I8, (T, cfg.QMAX), on_card=on_card),
+           cuda.check(name, q_len, I32, (T,), on_card=on_card),
+           cuda.check(name, trg, I8, (T, cfg.TMAX + cfg.KMAX), on_card=on_card),
+           cuda.check(name, n_term, I32, (T,), on_card=on_card),
+           cuda.check(name, init_k, I32, (T,), on_card=on_card),
+           cuda.check(name, min_overlap, I32, (T,), on_card=on_card),
+           cuda.check(name, wx.wcache, I32, on_card=on_card)]
+    # the kernel starts a ladder of CK or more symbols from the table when
+    # it holds every CK-mer (walk.cuh prep_task)
+    table = tuple(wx.wcache.shape) == (4 ** cfg.CK, 4) and wx.wcache.data_ptr() % 16 == 0
+    if use_wcache and not table:
+        raise ValueError(f"{name}: use_wcache needs the interval table of every "
+                         f"{cfg.CK}-mer, got {tuple(wx.wcache.shape)}")
+    if kb_term > cfg.KMAX + 1:
+        raise ValueError(f"{name}: kb_term {kb_term} reads past the target rows")
+    dims = _index_dims(wx.ix) + [T, cfg.QMAX, cfg.TMAX, cfg.KMAX, cfg.CK,
+                                 cfg.seed_size, kb_term, kb_root, int(use_wcache),
+                                 int(table), parts]
+    ptrs = (_index_ptrs(name, wx.ix, on_card) + ins
+            + [cuda.check(name, out[k], out[k].dtype, on_card=on_card) for k in _PREP_OUT])
+    return cuda.ptr_array(ptrs), cuda.int_array(dims)
 
 
 def _prep_kernel(wx: WalkIndex, query, q_len, trg, n_term, init_k, min_overlap,
-                 cfg: WalkConfig, kb_term: int, kb_root: int, use_wcache: bool):
-    name = "walk_prep"
+                 cfg: WalkConfig, kb_term: int, kb_root: int, use_wcache: bool,
+                 parts: int = PREP_ALL):
     T = query.shape[0]
-    dev = query.device
-    NC = cfg.NCHAIN
-    shapes = {"qcode9": (T, cfg.QMAX), "qcode5": (T, cfg.QMAX),
-              "term_f": (T, cfg.TMAX, 2), "term_r": (T, cfg.TMAX, 2),
-              "chain0": (T, 4, NC)}
-    out = {k: torch.empty(shapes.get(k, (T,)),
-                          dtype=I8 if k == "tail_letter" else I32, device=dev)
-           for k in _PREP_OUT}
-    ins = [cuda.check(name, query, I8, (T, cfg.QMAX)),
-           cuda.check(name, q_len, I32, (T,)),
-           cuda.check(name, trg, I8, (T, cfg.TMAX + cfg.KMAX)),
-           cuda.check(name, n_term, I32, (T,)),
-           cuda.check(name, init_k, I32, (T,)),
-           cuda.check(name, min_overlap, I32, (T,)),
-           cuda.check(name, wx.wcache, I32)]
-    dims = _index_dims(wx.ix) + [T, cfg.QMAX, cfg.TMAX, cfg.KMAX, cfg.CK,
-                                 cfg.seed_size, kb_term, kb_root, int(use_wcache)]
+    out = prep_outputs(T, cfg, query.device)
     if T:
-        cuda.launch(name, "lrsc_walk_prep",
-                    cuda.ptr_array(_index_ptrs(name, wx.ix) + ins
-                                   + [out[k].data_ptr() for k in _PREP_OUT]),
-                    cuda.int_array(dims))
+        cuda.launch("walk_prep", "lrsc_walk_prep",
+                    *prep_args(wx, query, q_len, trg, n_term, init_k, min_overlap, cfg,
+                               kb_term, kb_root, use_wcache, out, parts))
     return out
 
 

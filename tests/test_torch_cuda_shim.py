@@ -52,6 +52,9 @@ struct alignas(16) int4 { int x, y, z, w; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 struct alignas(16) float4 { float x, y, z, w; };
 inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return uint4{x, y, z, w};
+}
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };

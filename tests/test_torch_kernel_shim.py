@@ -1,6 +1,6 @@
 """scan_automaton, estimate_best, remove_hitchhiking and lf_extract of
-csrc/seedscan.cu and csrc/msa.cu, compiled for the host, equal their plain
-versions bit for bit.
+csrc/seedscan.cu and csrc/msa.cu, and kmer_table_full of csrc/kmer_table.cu,
+compiled for the host, equal their plain versions bit for bit.
 
 No card here: each source is compiled with g++ behind the CUDA shim of
 tests/test_torch_cuda_shim.py, blocks one at a time (the static shared
@@ -16,7 +16,11 @@ repeat and hitchhiked seeds; the three seed-slot kernels also run that
 chunk at the slot count the corrector sizes from its width, where the 7 kb
 read keeps every seed.  lf_extract runs grouped: both BWTs, groups
 with their own max_steps, rows that park at '$', N = 1, and an empty
-group.
+group.  kmer_table_full runs from the walk index's interval-table pyramid
+(ck 8 and 10, and without one) on reads with N inside the first ck symbols
+of some lanes, reads shorter than ck, lanes at and past a read's end and a
+read as long as the row, max_k below, at and above ck; also held against
+the JAX kmer_table_full.
 """
 import numpy as np
 import pytest
@@ -25,9 +29,11 @@ import torch
 from longreadselfcorrect_tpu_torch.core import alphabet as ab
 from longreadselfcorrect_tpu_torch.index.fmindex import FMIndex, IndexSet
 from longreadselfcorrect_tpu_torch.index import build
-from longreadselfcorrect_tpu_torch.ops import msa_kernels, seedscan
+from longreadselfcorrect_tpu_torch.ops import msa_kernels, scan, seedscan
+from longreadselfcorrect_tpu_torch.ops import walk as tw
 
 from test_torch_cuda_shim import build_host
+from test_torch_walk_prep import make_pair
 from test_torch_seedscan import stages  # noqa: F401  (the JAX-made chunks)
 
 torch.set_num_threads(1)
@@ -269,3 +275,68 @@ def test_scan_automaton_kernel_reads_past_a_mask_segment(seedscan_lib):
         assert torch.equal(g, w)
     n, starts = want[0], want[1]
     assert int(n[0]) > 20 and int(starts[0, : int(n[0])].max()) > 8192
+
+
+@pytest.fixture(scope="module")
+def kmer_lib(tmp_path_factory):
+    return build_host("kmer_table.cu", tmp_path_factory.mktemp("kmer_shim"),
+                      ("lrsc_kmer_table_full",))
+
+
+def n_reads(genome, L):
+    """int8 [8, L] reads of the genome (2% substitutions) and their
+    lengths: one as long as the row, two shorter than 8 and 11 symbols,
+    one of 1, and N (rank 0) at positions that put one inside the first
+    8-12 symbols of many lanes, next to each other and at a read's start."""
+    rng = np.random.default_rng(71)
+    lens = np.array([L, 7, 11, L - 9, L - 30, 1, L - 3, 40], np.int32)
+    mat = np.full((8, L), ab.PAD_RANK, np.int8)
+    for i, n in enumerate(lens):
+        p = int(rng.integers(0, len(genome) - n))
+        r = ab.encode(genome[p : p + n])
+        flip = rng.random(n) < 0.02
+        r[flip] = rng.integers(1, 5, size=int(flip.sum()))
+        mat[i, :n] = r
+    for i, pos in ((0, (5, 30, 31, 70)), (3, (0, 12, 13, 50)), (4, (9, L - 31)),
+                   (6, (20,)), (7, (3, 39))):
+        mat[i, list(pos)] = 0
+    return torch.from_numpy(mat), torch.from_numpy(lens)
+
+
+@pytest.fixture(scope="module")
+def pyramid_pair():
+    """tests/test_walk.py's corpus (JAX and port indexes), its walk index
+    at ck 8 and 10, and N-bearing reads of its genome."""
+    c = make_pair(33, 6000, 180)
+    c["wx"] = {ck: tw.WalkIndex.build(c["td"], c["th"], ck=ck) for ck in (8, 10)}
+    c["reads"], c["lens"] = n_reads(c["genome"], 96)
+    return c
+
+
+@pytest.mark.parametrize("ck,max_k", [(0, 20), (8, 5), (8, 8), (8, 20), (10, 9), (10, 24)])
+def test_kmer_table_full_kernel_matches_plain(kmer_lib, pyramid_pair, ck, max_k):
+    c = pyramid_pair
+    reads, lens = c["reads"], c["lens"]
+    R, L = reads.shape
+    freq = torch.full((max_k + 1, R, L), 7, dtype=torch.int32)
+    valid = torch.ones((max_k + 1, R, L), dtype=torch.bool)
+    levels = c["wx"][ck] if ck else None
+    assert kmer_lib.lrsc_kmer_table_full(*scan.kmer_table_full_args(
+        c["td"], reads, lens, max_k, levels, freq, valid, on_card=False), None) == 0
+    want_f, want_v = scan.kmer_table_full_plain(c["td"], reads, lens, max_k)
+    assert torch.equal(freq, want_f) and torch.equal(valid, want_v)
+    if max_k == 20:
+        from longreadselfcorrect_tpu.ops import scan as jscan
+        import jax.numpy as jnp
+
+        jf, jv = jscan.kmer_table_full(c["jd"], jnp.asarray(reads.numpy()),
+                                       jnp.asarray(lens.numpy()), max_k)
+        assert np.array_equal(freq.numpy(), np.asarray(jf))
+        assert np.array_equal(valid.numpy(), np.asarray(jv))
+    # the corpus reaches what it is for: k-mers that occur, k-mers through an
+    # N that occur (at '$'), lanes at and past their read's end
+    assert (want_f[min(max_k, 12), 0] > 0).float().mean() > 0.5
+    assert (want_f[max_k, 5] == -1).all() and (want_f[1, 5, 0] > 0)
+    assert (want_f[max_k, 0, L - max_k + 1 :] == -1).all()
+    for r, n in enumerate(lens.tolist()):   # a lane at or past len: fake at every level
+        assert (want_f[1:, r, n:] == -1).all() and not want_v[:, r, n:].any()

@@ -8,7 +8,10 @@ the arguments built by the same functions the wrappers use (ops/walk.py
 steps_args, queue_args).  walk_steps (40 supersteps, then on to
 completion) and walk_queue are held against walk_steps_plain /
 walk_queue_plain, every field, tolerance 0 (ints, bools, labels and f32
-error rates that feed compares).
+error rates that feed compares).  walk_prep is held against prep_plain on
+banks and batches whose tasks have no terminal window, one or all 48,
+init_k below, at and far above CK, and a bank whose largest init_k (21)
+exceeds most of its tasks'.
 """
 import numpy as np
 import pytest
@@ -27,7 +30,7 @@ torch.set_num_threads(1)
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     return build_host("walk.cu", tmp_path_factory.mktemp("walk_shim"),
-                      ("lrsc_walk_steps", "lrsc_walk_queue"))
+                      ("lrsc_walk_steps", "lrsc_walk_queue", "lrsc_walk_prep"))
 
 
 @pytest.fixture(scope="module")
@@ -132,3 +135,97 @@ def test_walk_kernels_match_plain(lib, corpora, slab, L, kmax, corpus):
         want_q = tw.walk_queue_plain(wx, bank, len(tasks), cfg, max_steps)
         assert_equal(got_q, want_q, tw.REDUCED_FIELDS, f"queue, max_steps {max_steps}")
     assert -900 in want_q.code.tolist()
+
+
+def spec_tasks(reads, spec):
+    """A gap task per (init_k, target length) of spec, cut from the reads;
+    min_overlap 13, so n_term = max(target length - 12, 0)."""
+    out = []
+    for t, (ik, tl) in enumerate(spec):
+        read = reads[(3 * t) % len(reads)]
+        s, gap = 40 + (t * 29) % 200, 60 + (t * 31) % 150
+        out.append(tw.GapTask(src=read[s : s + ik], path=read[s + ik : s + ik + gap],
+                              trg=read[s + ik + gap : s + ik + gap + tl], dis=gap,
+                              init_k=ik, max_overlap=ik + 2, min_overlap=13,
+                              min_sa_threshold=3))
+    return out
+
+
+# (init_k, target length) of each task: no terminal window (length 10),
+# one (13), all 48 (60), the usual 7 (19); init_k below CK, at CK, 21
+BANK = [(21, 19), (8, 10), (12, 13), (9, 60), (15, 19), (10, 19), (13, 60), (8, 19),
+        (11, 13), (16, 10), (14, 19), (9, 19)]
+# (ck, KMAX, QMAX, route, task specs): banks (the queue's prep, the table
+# from CK where every init_k reaches it) and batches (G rows, padding rows
+# with init_k 0; the JAX batch prep climbs every ladder from level 1)
+PREP_CASES = {
+    "bank ck8": (8, 24, 512, "bank", BANK),
+    "bank ck8 short root": (8, 24, 512, "bank", BANK + [(7, 19), (5, 60)]),
+    "bank ck10 kmax19": (10, 19, 512, "bank", [(10, 60), (16, 19), (12, 10), (11, 13),
+                                                (16, 60), (10, 19)]),
+    "batch ck8": (8, 24, 512, "batch", BANK + [(7, 19), (5, 60), (6, 13)]),
+    "batch ck10 qmax500": (10, 24, 500, "batch", [(7, 60), (10, 19), (21, 13), (9, 10),
+                                                  (14, 60)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREP_CASES))
+def test_walk_prep_kernel_matches_plain(lib, corpora, case):
+    ck, kmax, qmax, route, spec = PREP_CASES[case]
+    c = corpora["pair"]
+    tasks = port_tasks(spec_tasks(c["reads"], spec))
+    cfg = tw.WalkConfig(G=len(tasks) + 3, MAXLEN=512, QMAX=qmax, KMAX=kmax, CK=ck)
+    wx = tw.WalkIndex.build(c["td"], c["th"], ck=ck)
+    bank = route == "bank"
+    use_wc = bank and all(t.init_k >= ck for t in tasks)
+    T = len(tasks) if bank else cfg.G
+    query, trg, a, _, kbt, kbr = tw._task_arrays(tasks, cfg, T, bank)
+    ins = (wx, torch.from_numpy(query), torch.from_numpy(a["q_len"]), torch.from_numpy(trg),
+           torch.from_numpy(a["n_term"]), torch.from_numpy(a["init_k"]),
+           torch.from_numpy(a["min_overlap"]), cfg, kbt, kbr, use_wc)
+    out = tw.prep_outputs(T, cfg, "cpu")
+    for v in out.values():
+        v.fill_(7)   # the kernel writes every entry
+    assert lib.lrsc_walk_prep(*tw.prep_args(*ins, out, on_card=False), None) == 0
+    want = tw.prep_plain(*ins)
+    for k, v in want.items():
+        assert out[k].dtype == v.dtype and torch.equal(out[k], v), (case, k)
+    n_term, init_k = a["n_term"][: len(tasks)], a["init_k"][: len(tasks)]
+    assert kbr == 21 or kmax < 21
+    assert {0, 1}.issubset(set(n_term.tolist())) and (n_term.max() == 48 or "kmax19" in case)
+    assert (init_k < kbr).mean() > 0.5
+
+
+def test_walk_prep_parts_write_their_own_outputs(lib, corpora):
+    """The timing variants (walk.PREP_*): a launch of one part writes that
+    part's outputs as the whole launch does (the code rows, the tails and
+    the constants; the kept terminal windows; the kept chain slots and the
+    root) and leaves the rest alone."""
+    c = corpora["pair"]
+    tasks = port_tasks(spec_tasks(c["reads"], BANK))
+    cfg = tw.WalkConfig(G=len(tasks), MAXLEN=512, QMAX=512, KMAX=24, CK=8)
+    wx = tw.WalkIndex.build(c["td"], c["th"], ck=8)
+    query, trg, a, _, kbt, kbr = tw._task_arrays(tasks, cfg, len(tasks), True)
+    ins = (wx, torch.from_numpy(query), torch.from_numpy(a["q_len"]), torch.from_numpy(trg),
+           torch.from_numpy(a["n_term"]), torch.from_numpy(a["init_k"]),
+           torch.from_numpy(a["min_overlap"]), cfg, kbt, kbr, True)
+    want = tw.prep_plain(*ins)
+    n_term, init_k = torch.from_numpy(a["n_term"]), torch.from_numpy(a["init_k"])
+    kept_m = torch.arange(cfg.TMAX)[None, :] < n_term[:, None]
+    kept_i = (cfg.CK + torch.arange(cfg.NCHAIN))[None, :] <= init_k[:, None]
+    for bits in (tw.PREP_CODES, tw.PREP_TERM, tw.PREP_CHAIN):
+        out = tw.prep_outputs(len(tasks), cfg, "cpu")
+        for v in out.values():
+            v.fill_(7)
+        assert lib.lrsc_walk_prep(*tw.prep_args(*ins, out, bits, on_card=False), None) == 0
+        for k in ("qcode9", "qcode5", "tail9", "tail8", "tail_letter", "tail_count"):
+            assert torch.equal(out[k], want[k]) == (bits == tw.PREP_CODES), (bits, k)
+        for k in ("term_f", "term_r"):
+            part = {tw.PREP_CODES: ~kept_m, tw.PREP_TERM: kept_m}.get(bits, kept_m & False)
+            assert torch.equal(out[k][part], want[k][part]), (bits, k)
+            assert (out[k][~part] == 7).all(), (bits, k)
+        part = {tw.PREP_CODES: ~kept_i, tw.PREP_CHAIN: kept_i}.get(bits, kept_i & False)
+        got_c, want_c = out["chain0"].transpose(1, 2), want["chain0"].transpose(1, 2)
+        assert torch.equal(got_c[part], want_c[part]) and (got_c[~part] == 7).all(), bits
+        for k in ("f_lo", "f_hi", "r_lo", "r_hi", "freq"):
+            assert torch.equal(out[k], want[k]) == (bits == tw.PREP_CHAIN), (bits, k)
