@@ -31,8 +31,10 @@ exits non-zero without the final result line):
             the us per round on every chunk, and the times of the other two
             slot kernels there
 5. walks    each walk kernel against its plain version on the card, on the
-            gap tasks the 256 noisy reads enumerate, exactly: the level-up
-            11 -> 12, the prep of the bank, one superstep and a walk to
+            gap tasks the 256 noisy reads enumerate, exactly: every
+            level-up of the interval tables (8 -> 9 .. 11 -> 12, each with
+            its index rows, event and device ms and bound), the prep of the
+            bank, one superstep and a walk to
             completion of a 512-lane batch, the queue engine on 1024 tasks,
             each with the supersteps of its longest lane, the us per
             superstep, the warps resident per SM and the shared bytes per
@@ -63,7 +65,8 @@ exits non-zero without the final result line):
             SelfCorrector; reads/s of the stream, the tables' seconds, the
             seed/walks/replay split, the gaps, prefetch and host-fallback
             counters, the launches, and the configs walk_steps ran at (a
-            config phase 5 did not check is checked now)
+            config phase 5 did not check is checked now); the banded_fill
+            calls of the pass recorded for phase 10
 9. dp       the walk configs of the 15%-error reads' gap tasks checked as in
             phase 5; then process_stream over those reads, launch counts
             reset just before, the MSA kernels' calls recorded: reads/s, the
@@ -73,9 +76,13 @@ exits non-zero without the final result line):
             alignment); the first 8 reads that reached the DP fallback held
             against the host SelfCorrector
 10. msa     lf_extract against its plain version on every multiple
-            alignment's grouped call, banded_fill on calls the DP path made,
-            exactly; kernel and plain times on the median call, with the
-            bound and lf_extract's us per dependent step; per call the host
+            alignment's grouped call, banded_fill on every call of phases 8
+            and 9 (with its device ms and us per column), exactly; kernel
+            and plain times on the median call, with the bound,
+            lf_extract's us per dependent step and banded_fill's us per
+            column and chain floor (one lane's column time at bw 31 times
+            the call's columns), the whole banded_fill call and the
+            download of its cells; per call the host
             route (numpy) against the card route (copies included): the
             crossover that sets the gates of core/msa.py; both routes of
             build_multiple_alignment on DP fallbacks of the path, consensus
@@ -119,7 +126,7 @@ N_DP_CHECK = 8        # reads that reached the DP fallback, held against the hos
 SEG_START, SEG_LEN = 1_000_000, 7000  # the error-free genome segment of phase 4
 LONG_START, LONG_LEN = 2_000_000, 20_000  # phase 4's long read (8% error)
 MSA_CHECK_GATE = 32   # recorded lf_extract calls timed on both routes
-MSA_CHECK_FILL = 16   # recorded banded_fill calls replayed against the plain version
+MSA_GATE_FILL = 16    # recorded banded_fill calls timed on both routes
 MSA_CHECK_PILEUPS = 16  # DP fallbacks run through both routes of the MSA
 BATCH_READS = 64      # reads per stream batch (pbcorrect --batch-reads)
 WALK_BATCH = 512
@@ -920,17 +927,32 @@ def phase_walks(corrector, items):
     rec = {}
     t_phase = time.perf_counter()
 
-    # level-up 11 -> 12 (the last, largest level of the bench index)
-    st = tuple(wx.level(wx.ck - 1)[:, i].contiguous() for i in range(4))
-    got = walk.wcache_level_up(ix, *st)
-    with rank.RowTracker(ix) as rc:
-        want, plain_ms = time_once(lambda: walk.wcache_level_up_plain(ix, *st))
-    n = st[0].numel()
+    # every level-up of get_tables (8 -> 9 .. 11 -> 12 on the bench
+    # index): each against the plain version, with its index rows, event
+    # and device ms and byte bound (rows once, parents read, children
+    # written); the record is the last, largest level's
+    levels = []
+    for k in range(walk.CACHE_K, wx.ck):
+        st = tuple(wx.level(k)[:, i].contiguous() for i in range(4))
+        got = walk.wcache_level_up(ix, *st, k=k)
+        with rank.RowTracker(ix) as rc:
+            want, plain_ms = time_once(lambda: walk.wcache_level_up_plain(ix, *st))
+        n = st[0].numel()
+        lv = dict(level=f"{k}->{k + 1}", parents=n, rows=rc.rows, err=tensors_err(got, want),
+                  ms=round(time_ms(lambda: walk.wcache_level_up(ix, *st, k=k)), 4),
+                  device_ms=round(device_ms(lambda: walk.wcache_level_up(ix, *st, k=k)), 4),
+                  plain_ms=round(plain_ms, 3), bytes=16 * n + 64 * n + rc.rows * 132)
+        lv["bound_ms"] = round(bound(lv["bytes"], 0)[0], 5)
+        levels.append(lv)
+        del got, want
+    say("walks: wcache_level_up on every level of get_tables: " + json.dumps(levels)
+        + f"; all four {sum(lv['device_ms'] for lv in levels):.4f} device ms, bound "
+        f"{sum(lv['bound_ms'] for lv in levels):.5f}")
+    top = levels[-1]
     rec["wcache_level_up"] = dict(
-        err=tensors_err(got, want), ms=time_ms(lambda: walk.wcache_level_up(ix, *st)),
-        plain_ms=plain_ms, bytes=16 * n + 64 * n + rc.rows * 132,
-        shape=f"{n} parents -> {4 * n} children, {rc.rows} index rows")
-    del got, want
+        err=max(lv["err"] for lv in levels), ms=top["ms"], plain_ms=top["plain_ms"],
+        bytes=top["bytes"], shape=f"{top['parents']} parents -> {4 * top['parents']} "
+        f"children, {top['rows']} index rows (level {top['level']})")
 
     # the gap tasks the 256 noisy reads enumerate, the primary config's
     per_read = [(rid, seq, seeds) for _, chunk, sl in corrector._device_seed_scan(items)
@@ -1474,12 +1496,13 @@ def phase_correct(hix, dix, params, items, checks):
     the walk's interval tables (built anew), then BatchedSelfCorrector's
     process_stream over all noisy reads; launch counts reset just before.
     Every config walk_steps ran at is then held against its plain version
-    (if phase 5 did not already).  Returns (launches, WalkIndex)."""
+    (if phase 5 did not already).  Returns (launches, WalkIndex, the
+    walk_prep records, the banded_fill calls of the pass)."""
     import torch
 
     from longreadselfcorrect_tpu_torch.core.batch_correct import BatchedSelfCorrector
     from longreadselfcorrect_tpu_torch.core.correct import SelfCorrector
-    from longreadselfcorrect_tpu_torch.ops import cuda, walk
+    from longreadselfcorrect_tpu_torch.ops import cuda, msa_kernels, walk
 
     torch.cuda.synchronize()
     cuda.reset_launches()
@@ -1489,9 +1512,9 @@ def phase_correct(hix, dix, params, items, checks):
     torch.cuda.synchronize()
     t_tables = time.perf_counter() - t0
     corrector = BatchedSelfCorrector(hix, wx, params)
-    preps = []
+    preps, fills = [], []
     t0 = time.perf_counter()
-    with recording(walk, "prep", preps):
+    with recording(walk, "prep", preps), recording(msa_kernels, "banded_fill", fills):
         results = run_stream(corrector, items)
     dt = time.perf_counter() - t0
     launches = dict(cuda.LAUNCHES)
@@ -1533,7 +1556,7 @@ def phase_correct(hix, dix, params, items, checks):
         checks.cover(k)
     if new:
         checks.report("correct")
-    return launches, wx, prep
+    return launches, wx, prep, fills
 
 
 # ---------------------------------------------------------------------------
@@ -1700,13 +1723,14 @@ def crossover(points):
     return None
 
 
-def phase_msa(hix, dix, calls):
+def phase_msa(hix, dix, calls, fills8):
     """Each MSA kernel against its plain version on the card, exactly, on
-    the calls the DP path made; kernel and plain times on the median-sized
-    call with its bound; the host route (numpy) against the card route
-    (with its copies) per call, which decides the gates of core/msa.py;
-    both routes of build_multiple_alignment on DP fallbacks of the path.
-    Returns {kernel: record}."""
+    every call the DP path made (banded_fill also on phase 8's calls,
+    fills8), with its device ms; kernel and plain times on the
+    median-sized call with its bound; the host route (numpy) against the
+    card route (with its copies) per call, which decides the gates of
+    core/msa.py; both routes of build_multiple_alignment on DP fallbacks
+    of the path.  Returns {kernel: record}."""
     import numpy as np
     import torch
 
@@ -1766,30 +1790,66 @@ def phase_msa(hix, dix, calls):
         f"dependent step over its longest row's {chain}; longest row per call "
         f"min/median/max {min(chains)}/{statistics.median(chains)}/{max(chains)}")
 
-    # banded_fill: (queries, targets, starts1, starts2, band_width, scores, device)
+    # banded_fill: (queries, targets, starts1, starts2, band_width, scores,
+    # device), every call of phase 8's pass (8%) and of phase 9's (15%)
+    check(bool(calls["fill"]), "msa: the DP path made no banded_fill call")
+    err, passes = 0, {}
+    for label, log in (("8%", fills8), ("15%", calls["fill"])):
+        per_call = []
+        for qs, ts, s1, s2, band, scores, _ in log:
+            q, t, tl, org, bw = msa_kernels.encode_pairs(qs, ts, s1, s2, band)
+            dev = [torch.from_numpy(a).cuda() for a in (q, t, tl, org)]
+            err = max(err, max_abs_err(msa_kernels.banded_fill_tensors(*dev, bw, scores),
+                                       msa_kernels.banded_fill_plain(*dev, bw, scores)))
+            d_ms = device_ms(lambda: msa_kernels.banded_fill_tensors(*dev, bw, scores), reps=3)
+            per_call.append(dict(N=q.shape[0], Q=q.shape[1], device_ms=round(d_ms, 4),
+                                 us_per_column=round(d_ms * 1e3 / max(q.shape[1], 1), 3)))
+        passes[label] = dict(calls=len(log), device_ms=round(sum(c["device_ms"]
+                                                                for c in per_call), 4),
+                             per_call=per_call)
     fills = sorted(calls["fill"], key=lambda c: len(c[0]) * max(map(len, c[0])))
-    check(bool(fills), "msa: the DP path made no banded_fill call")
-    err, gate_pts = 0, []
-    for qs, ts, s1, s2, band, scores, device in spread(fills, MSA_CHECK_FILL):
-        args = msa_kernels.encode_pairs(qs, ts, s1, s2, band)
-        dev = [torch.from_numpy(a).cuda() for a in args[:4]]
-        err = max(err, max_abs_err(msa_kernels.banded_fill_tensors(*dev, args[4], scores),
-                                   msa_kernels.banded_fill_plain(*dev, args[4], scores)))
+    gate_pts = []
+    for qs, ts, s1, s2, band, scores, device in spread(fills, MSA_GATE_FILL):
         gate_pts.append((len(qs),
                          wall_ms(lambda: fill_cells_batched(qs, ts, s1, s2, band, *scores)),
                          wall_ms(lambda: msa_kernels.banded_fill(qs, ts, s1, s2, band,
                                                                  scores, device))))
-    qs, ts, s1, s2, band, scores, _ = fills[len(fills) // 2]
+    qs, ts, s1, s2, band, scores, device = fills[len(fills) // 2]
     q, t, tl, org, bw = msa_kernels.encode_pairs(qs, ts, s1, s2, band)
     dev = [torch.from_numpy(a).cuda() for a in (q, t, tl, org)]
     _, plain_ms = time_once(lambda: msa_kernels.banded_fill_plain(*dev, bw, scores))
     N, Q = q.shape
     b_ms, b_by = bound(q.size + t.size + 8 * N + 4 * N * (Q + 1) * bw, 12 * N * Q * bw)
+    d_ms = device_ms(lambda: msa_kernels.banded_fill_tensors(*dev, bw, scores))
+    # the chain floor: Q columns, each at least the column time of one
+    # lane at bw = 32 (one slot a thread: the column is its shuffle chain
+    # and a few dependent integer ops), measured on 4096 columns
+    chain_q = 4096
+    one = [torch.from_numpy(a).cuda() for a in msa_kernels.encode_pairs(
+        [qs[0][:1] * chain_q], [qs[0][:1] * (chain_q + 32)], [0], [0], 31)[:4]]
+    col_us = device_ms(lambda: msa_kernels.banded_fill_tensors(*one, 31, scores)) * 1e3 / chain_q
+    # the whole call the DP path makes (encode, upload, kernel, download)
+    # and the download of its cells alone
+    cells = msa_kernels.banded_fill_tensors(*dev, bw, scores)
+    host = torch.empty(cells.shape, dtype=cells.dtype, pin_memory=True)
     rec["banded_fill"] = dict(
         max_abs_err=err, ms=time_ms(lambda: msa_kernels.banded_fill_tensors(*dev, bw, scores)),
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        device_ms=round(d_ms, 4), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         shape=f"N={N} Q={Q} T={t.shape[1]} bw={bw}", gate=crossover(gate_pts),
-        points=gate_pts)
+        points=gate_pts, us_per_column=round(d_ms * 1e3 / Q, 3), chain=Q,
+        column_floor_us=round(col_us, 4), chain_floor_ms=round(Q * col_us / 1e3, 5),
+        call_wall_ms=round(wall_ms(lambda: msa_kernels.banded_fill(
+            qs, ts, s1, s2, band, scores, device), reps=5), 4),
+        download_ms=round(time_ms(lambda: host.copy_(cells)), 4),
+        cells_mb=round(cells.numel() * 4 / 1e6, 3))
+    del cells, host
+    say(f"msa: banded_fill on every call of the two DP paths, exact: {err == 0}; "
+        + json.dumps(passes) + f"; the median call {d_ms:.4f} device ms = "
+        f"{d_ms * 1e3 / Q:.3f} us per column over its {Q} columns (chain floor "
+        f"{Q * col_us / 1e3:.5f} ms: {col_us:.4f} us a column, one lane at bw 31 over "
+        f"{chain_q}); the whole call {rec['banded_fill']['call_wall_ms']} ms wall, the "
+        f"download of its {rec['banded_fill']['cells_mb']} MB of cells "
+        f"{rec['banded_fill']['download_ms']} ms")
 
     # both routes of the MSA on DP fallbacks of the path
     routes = []
@@ -1940,11 +2000,11 @@ def main() -> int:
     seeds6 = phase_seeds(corrector, hix, items, seg)
     tables, table_launches = phase_tables(corrector, hix, items, seeds6)
     rec.update(tables)
-    launches, wx, prep8 = phase_correct(hix, dix, params, items, checks)
+    launches, wx, prep8, fills8 = phase_correct(hix, dix, params, items, checks)
     dp_launches, calls, prep9 = phase_dp(hix, wx, params, dp, checks)
     rec["walk_prep"]["max_abs_err"] = max([rec["walk_prep"]["err"]]
                                           + [r["err"] for r in prep8 + prep9])
-    rec.update(phase_msa(hix, dix, calls))
+    rec.update(phase_msa(hix, dix, calls, fills8))
     t0 = time.perf_counter()
     phase_trace(hix, wx, params, items, "trace", tuple(KERNEL_INFO))
     say(f"trace: in {time.perf_counter() - t0:.1f}s")

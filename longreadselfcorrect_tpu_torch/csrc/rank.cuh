@@ -129,6 +129,98 @@ __device__ __forceinline__ void update_interval_shared(const int8_t* __restrict_
   }
 }
 
+// 0x01 in each byte of w that holds symbol 1, 2, 3 or 4 (f[0..3]).  The
+// index bytes are symbols 0..5 (5 pads the last block), so the low three
+// bits tell them apart: 1 = 001, 2 = 010, 3 = 011, 4 = 100 (0 and 5 = 101
+// match none).
+__device__ __forceinline__ void acgt_flags(unsigned w, unsigned (&f)[4]) {
+  const unsigned b0 = w & 0x01010101u, b1 = (w >> 1) & 0x01010101u,
+                 b2 = (w >> 2) & 0x01010101u;
+  f[0] = b0 & ~(b1 | b2);
+  f[1] = b1 & ~(b0 | b2);
+  f[2] = b0 & b1 & ~b2;
+  f[3] = b2 & ~(b0 | b1);
+}
+
+// M-form mask (0x01 in each kept byte) of word j's bytes below byte r of
+// a 64-byte half row (0 <= r < 64): whole words below r, the partial word
+// r >> 2, none above
+__device__ __forceinline__ unsigned half_prefix_mask(int j, int r) {
+  const unsigned part = (unsigned)((1ull << (8 * (r & 3))) - 1ull) & 0x01010101u;
+  return j < (r >> 2) ? 0x01010101u : j == (r >> 2) ? part : 0u;
+}
+
+// occ of all four ACGT symbols at both ends of an interval, the JAX
+// occ_all (ops/rank.py:43) at lo - 1 and hi: a[c] = occ(c + 1, lo - 1),
+// b[c] = occ(c + 1, hi), the same values as occ.  An end whose prefix
+// ends in the first half of its row (r < 64 symbols) counts that prefix
+// from the row's first 64 bytes and adds it to the row's checkpoint; one
+// that ends in the second half counts the rest of the row, from r on,
+// and takes it from the next row's checkpoint (after the last row, the
+// symbol's total C[c + 1] - C[c]: the pack pads the last row with
+// symbol 5).  So an end reads one 64-byte half row and counts at most 16
+// words; both ends read one half where they share it.  Per word the four
+// symbols' byte flags are added in byte lanes (at most 16 a lane) under
+// the end's byte mask.
+__device__ __forceinline__ void occ_acgt_pair(const int8_t* __restrict__ blocks,
+                                              const int* __restrict__ ckpt,
+                                              const int* __restrict__ C, int nb, int lo,
+                                              int hi, int (&a)[4], int (&b)[4]) {
+  const int pa = lo, pb = hi + 1;  // prefix lengths of the two ends
+  const int qa = pa >> 7, qb = pb >> 7;
+  const int ra = pa - (qa << 7), rb = pb - (qb << 7);
+  const int ia = min(max(qa, 0), nb - 1), ib = min(max(qb, 0), nb - 1);
+  // the half each end counts (a clamped row counts its prefix)
+  const int ha = ra >= 64 && qa == ia, hb = rb >= 64 && qb == ib;
+  const bool share = ia == ib && ha == hb;
+  const uint4* va = reinterpret_cast<const uint4*>(blocks + (size_t)ia * kBlock) + 4 * ha;
+  const uint4* vb = reinterpret_cast<const uint4*>(blocks + (size_t)ib * kBlock) + 4 * hb;
+  uint4 xa[4], xb[4];
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    xa[v] = __ldg(va + v);
+    xb[v] = share ? xa[v] : __ldg(vb + v);
+  }
+  // the checkpoint row each end adds to (its row) or takes from (the next)
+  const int ka = ia + ha, kb = ib + hb;
+  const int* cpa = ckpt + (size_t)min(ka, nb - 1) * 5;
+  const int* cpb = ckpt + (size_t)min(kb, nb - 1) * 5;
+  int ca[4], cb[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int total = __ldg(C + c + 2) - __ldg(C + c + 1);
+    ca[c] = ka < nb ? __ldg(cpa + c + 1) : total;
+    cb[c] = kb < nb ? __ldg(cpb + c + 1) : total;
+  }
+  const int ra2 = ra - 64 * ha, rb2 = rb - 64 * hb;  // bytes into the half
+  const unsigned fa = ha ? 0x01010101u : 0u, fb = hb ? 0x01010101u : 0u;
+  unsigned sa[4] = {0u, 0u, 0u, 0u}, sb[4] = {0u, 0u, 0u, 0u}, f[4], g[4];
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    const unsigned wa[4] = {xa[v].x, xa[v].y, xa[v].z, xa[v].w};
+    const unsigned wb[4] = {xb[v].x, xb[v].y, xb[v].z, xb[v].w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      // a prefix keeps the bytes below r, a suffix the others
+      const unsigned ma = half_prefix_mask(4 * v + k, ra2) ^ fa;
+      const unsigned mb = half_prefix_mask(4 * v + k, rb2) ^ fb;
+      acgt_flags(wa[k], f);
+      acgt_flags(wb[k], g);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sa[c] += f[c] & ma;
+        sb[c] += g[c] & mb;
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int na = (int)((sa[c] * 0x01010101u) >> 24), nb2 = (int)((sb[c] * 0x01010101u) >> 24);
+    a[c] = ha ? ca[c] - na : ca[c] + na;
+    b[c] = hb ? cb[c] - nb2 : cb[c] + nb2;
+  }
+}
+
 __device__ __forceinline__ int comp(int sym) { return sym == 0 ? 0 : 5 - sym; }
 
 }  // namespace lrsc

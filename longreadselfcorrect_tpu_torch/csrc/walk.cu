@@ -1,10 +1,27 @@
 // The FM-extension walk engine: four kernels replacing the JAX package's
 // ops/walk.py device functions (the per-lane logic is in walk.cuh).
 //
-// * wcache_level_up (walk.py:124 _wcache_level_up): one thread per child
-//   code; four rank queries each.  Bound: the random index rows of the
-//   rank queries (one 128-byte row + a checkpoint word each), then the
-//   4 x 16 B per child written.
+// * wcache_level_up (walk.py:124 _wcache_level_up): one thread per
+//   parent interval of level k (n = 4^k), its four children written as
+//   one 16-byte vector per output.  Bound: the index rows read (the
+//   level reads nearly every row of both BWTs at k = 11) and the children
+//   written.  A child's four ends are rank queries at the parent's four
+//   positions with another symbol, so the thread reads each position's
+//   row once and counts all four symbols from it (rank.cuh
+//   occ_acgt_pair: half a row an end, one half for both ends where they
+//   share it): at most 4 row loads a parent, where one thread per child
+//   made 16 queries.  The parents are visited in the order of their
+//   intervals: the forward interval of word w is the SA range of
+//   reverse(w), which sorts by the last base first, then the one before;
+//   thread g takes the parent whose last kLevelRun bases are those of g
+//   and whose other k - kLevelRun bases, read from last to first, are the
+//   base-4 digits of the rest of g.  So within each of the 4^kLevelRun
+//   streams f_lo rises with g and r_lo (the BWT interval of the reverse
+//   complement, sorted by the complemented bases) falls, a warp reads a
+//   few neighbouring rows per stream, and a level reads each row from
+//   device memory about once; the 16 parents of a run are consecutive
+//   codes, so their inputs are read and their children written as whole
+//   sectors.
 // * walk_prep (walk.py:371 _prep_core via :586/:598/:1986): one warp per
 //   task (walk.cuh prep_task): the task's rows staged in shared memory,
 //   the code rows written by the whole warp, one lane per LF ladder whose
@@ -180,22 +197,43 @@ Root read_root(Args& a) {
 
 // ---------------------------------------------------------------------------
 
-__global__ void wcache_level_up_kernel(Index ix, int n, const int* __restrict__ f_lo,
+// the parent code thread g visits (see the note above): its last
+// kLevelRun bases those of g, the k - kLevelRun before them the base-4
+// digits of the rest of g in reverse order
+constexpr int kLevelRun = 2;
+__device__ __forceinline__ int level_up_parent(int g, int k) {
+  if (k <= kLevelRun) return g;
+  int m = g >> (2 * kLevelRun), code = 0;
+  for (int d = kLevelRun; d < k; ++d) {
+    code = (code << 2) | (m & 3);
+    m >>= 2;
+  }
+  return (code << (2 * kLevelRun)) | (g & ((1 << (2 * kLevelRun)) - 1));
+}
+
+__global__ void wcache_level_up_kernel(Index ix, int n, int k, const int* __restrict__ f_lo,
                                        const int* __restrict__ f_hi,
                                        const int* __restrict__ r_lo,
-                                       const int* __restrict__ r_hi, int* o0, int* o1,
-                                       int* o2, int* o3) {
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= 4LL * n) return;
-  const int parent = (int)(c >> 2), sym = (int)(c & 3) + 1, csym = 5 - sym;
-  int a = f_lo[parent], z = f_hi[parent];
-  lf_f(ix, sym, a, z);
-  int u = r_lo[parent], w = r_hi[parent];
-  lf_r(ix, csym, u, w);
-  o0[c] = a;
-  o1[c] = z;
-  o2[c] = u;
-  o3[c] = w;
+                                       const int* __restrict__ r_hi, int4* o0, int4* o1,
+                                       int4* o2, int4* o3) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= n) return;
+  const int p = level_up_parent(g, k);
+  // child 4p + c - 1 appends base c: the RBWT step by c, the BWT step by
+  // comp(c) = 5 - c
+  int a[4], z[4], u[4], w[4];
+  lrsc::occ_acgt_pair(ix.fb, ix.fck, ix.fC, ix.fnb, __ldg(f_lo + p), __ldg(f_hi + p), a, z);
+  lrsc::occ_acgt_pair(ix.rb, ix.rck, ix.rC, ix.rnb, __ldg(r_lo + p), __ldg(r_hi + p), u, w);
+  int pf[4], pr[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    pf[c] = __ldg(ix.fC + c + 1);
+    pr[c] = __ldg(ix.rC + 4 - c);
+  }
+  o0[p] = make_int4(pf[0] + a[0], pf[1] + a[1], pf[2] + a[2], pf[3] + a[3]);
+  o1[p] = make_int4(pf[0] + z[0] - 1, pf[1] + z[1] - 1, pf[2] + z[2] - 1, pf[3] + z[3] - 1);
+  o2[p] = make_int4(pr[0] + u[3], pr[1] + u[2], pr[2] + u[1], pr[3] + u[0]);
+  o3[p] = make_int4(pr[0] + w[3] - 1, pr[1] + w[2] - 1, pr[2] + w[1] - 1, pr[3] + w[0] - 1);
 }
 
 constexpr int kPrepWarps = 4;  // tasks per block, one warp each
@@ -314,6 +352,7 @@ int launch_queue(Index ix, Cfg cf, Consts K, Reduced R, Root RT, int* head, int 
 
 // Each entry takes a host array of device pointers and a host array of
 // ints, in the order ops/walk.py builds them, and the stream.
+// n = 4^k parents of level k (1 <= k <= 15)
 extern "C" int lrsc_wcache_level_up(void* const* p, const int* d, void* stream) {
   Args a{p, d};
   Index ix = read_index(a);
@@ -321,16 +360,14 @@ extern "C" int lrsc_wcache_level_up(void* const* p, const int* d, void* stream) 
   const int* f_hi = a.ptr<const int*>();
   const int* r_lo = a.ptr<const int*>();
   const int* r_hi = a.ptr<const int*>();
-  int* o[4];
-  for (int q = 0; q < 4; ++q) o[q] = a.ptr<int*>();
+  int4* o[4];
+  for (int q = 0; q < 4; ++q) o[q] = a.ptr<int4*>();
   const int n = a.num();
-  const long long lanes = 4LL * n;
+  const int k = a.num();
+  if (k < 1 || k > 15 || n != 1 << (2 * k)) return (int)cudaErrorInvalidValue;
   const int threads = 256;
-  if (lanes > 0) {
-    wcache_level_up_kernel<<<(unsigned)((lanes + threads - 1) / threads), threads, 0,
-                             (cudaStream_t)stream>>>(ix, n, f_lo, f_hi, r_lo, r_hi, o[0],
-                                                     o[1], o[2], o[3]);
-  }
+  wcache_level_up_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+      ix, n, k, f_lo, f_hi, r_lo, r_hi, o[0], o[1], o[2], o[3]);
   return (int)cudaGetLastError();
 }
 

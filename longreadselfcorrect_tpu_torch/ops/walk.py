@@ -187,7 +187,7 @@ def get_tables(ix: IndexSet, host_ix, ck: int, reuse: bool = True):
     for k in range(CACHE_K + 1, ck + 1):
         if k == ck and top is not None:
             break
-        st = wcache_level_up(ix, *st)
+        st = wcache_level_up(ix, *st, k - 1)
         levels.append(torch.stack(st, dim=1).contiguous())
     if top is None:
         top = levels[-1]
@@ -241,22 +241,29 @@ def _index_dims(ix: IndexSet) -> list[int]:
     return [ix.rbwt.blocks.shape[0], ix.bwt.blocks.shape[0]]
 
 
-def wcache_level_up(ix: IndexSet, f_lo, f_hi, r_lo, r_hi):
+def wcache_level_up(ix: IndexSet, f_lo, f_hi, r_lo, r_hi, k: int | None = None):
     """4 x i32 [n] intervals of every k-mer -> 4 x i32 [4n] of every
-    (k+1)-mer.  Kernel on CUDA tensors, plain version on CPU tensors."""
+    (k+1)-mer.  Kernel on CUDA tensors, plain version on CPU tensors.  The
+    kernel visits the parents in the order of their intervals, which it
+    derives from the level: k is required there and n must be 4^k."""
+    if k is not None and f_lo.shape[0] != 4 ** k:
+        raise ValueError(f"wcache_level_up: {f_lo.shape[0]} parents are not the 4^{k} "
+                         f"of level {k}")
     if not f_lo.is_cuda:
         return wcache_level_up_plain(ix, f_lo, f_hi, r_lo, r_hi)
-    return _level_up_kernel(ix, f_lo, f_hi, r_lo, r_hi)
+    if k is None or not 1 <= k <= 15:
+        raise ValueError(f"wcache_level_up: the kernel takes a parent level 1..15, got {k}")
+    return _level_up_kernel(ix, f_lo, f_hi, r_lo, r_hi, k)
 
 
-def _level_up_kernel(ix: IndexSet, f_lo, f_hi, r_lo, r_hi):
+def _level_up_kernel(ix: IndexSet, f_lo, f_hi, r_lo, r_hi, k: int):
     name = "wcache_level_up"
     n = f_lo.shape[0]
     ins = [cuda.check(name, t, I32, (n,)) for t in (f_lo, f_hi, r_lo, r_hi)]
     outs = [torch.empty(4 * n, dtype=I32, device=f_lo.device) for _ in range(4)]
     cuda.launch(name, "lrsc_wcache_level_up",
                 cuda.ptr_array(_index_ptrs(name, ix) + ins + [o.data_ptr() for o in outs]),
-                cuda.int_array(_index_dims(ix) + [n]))
+                cuda.int_array(_index_dims(ix) + [n, k]))
     return tuple(outs)
 
 

@@ -209,6 +209,10 @@ template <class T>
 inline T __shfl_up_sync(unsigned, T v, unsigned d) {
   return shim::exchange(v, [d](int ln) { return ln >= (int)d ? ln - (int)d : ln; });
 }
+template <class T>
+inline T __shfl_down_sync(unsigned, T v, unsigned d) {
+  return shim::exchange(v, [d](int ln) { return ln + (int)d < 32 ? ln + (int)d : ln; });
+}
 
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
 inline unsigned atomicMin(unsigned* p, unsigned v) {
@@ -316,9 +320,10 @@ PROBE = r"""
 #include <cuda_runtime.h>
 namespace {
 // per block of 64 threads: an inclusive warp scan (shfl_up), the warp's
-// ballot of odd values, a block total through a static shared array, and
-// each thread's value read back by another thread through dynamic shared
-// memory after a barrier
+// ballot of odd values, a block total through a static shared array, each
+// thread's value read back by another thread through dynamic shared
+// memory after a barrier, and the value two lanes up (shfl_down; the last
+// two lanes keep their own)
 __global__ void probe_kernel(const int* in, int* out) {
   __shared__ int tot[2];
   extern __shared__ int probe_smem[];
@@ -333,10 +338,11 @@ __global__ void probe_kernel(const int* in, int* out) {
   const unsigned odd = __ballot_sync(0xffffffffu, in[g] & 1);
   if (lane == 31) tot[w] = v;
   __syncthreads();
-  out[4 * g] = v;
-  out[4 * g + 1] = (int)odd;
-  out[4 * g + 2] = tot[0] + tot[1];
-  out[4 * g + 3] = probe_smem[blockDim.x - 1 - t];
+  out[5 * g] = v;
+  out[5 * g + 1] = (int)odd;
+  out[5 * g + 2] = tot[0] + tot[1];
+  out[5 * g + 3] = probe_smem[blockDim.x - 1 - t];
+  out[5 * g + 4] = __shfl_down_sync(0xffffffffu, in[g], 2);
 }
 }  // namespace
 extern "C" int probe(const int* in, int* out, int blocks, void* stream) {
@@ -352,7 +358,7 @@ def test_shim_collectives(tmp_path):
                      one_block=True, text=PROBE)
     blocks = 3
     x = np.random.default_rng(0).integers(0, 100, size=64 * blocks).astype(np.int32)
-    out = np.zeros((64 * blocks, 4), np.int32)
+    out = np.zeros((64 * blocks, 5), np.int32)
     assert lib.probe(x.ctypes.data, out.ctypes.data, blocks, None) == 0
     for b in range(blocks):
         blk = x[64 * b : 64 * (b + 1)]
@@ -364,3 +370,5 @@ def test_shim_collectives(tmp_path):
         assert [np.uint32(o) for o in got[::32, 1]] == [np.uint32(o) for o in odd]
         assert (got[:, 2] == blk.sum()).all()
         assert np.array_equal(got[:, 3], blk[::-1])
+        down = np.concatenate([np.concatenate([wv[2:], wv[30:]]) for wv in warps])
+        assert np.array_equal(got[:, 4], down)

@@ -16,11 +16,16 @@ repeat and hitchhiked seeds; the three seed-slot kernels also run that
 chunk at the slot count the corrector sizes from its width, where the 7 kb
 read keeps every seed.  lf_extract runs grouped: both BWTs, groups
 with their own max_steps, rows that park at '$', N = 1, and an empty
-group.  kmer_table_full runs from the walk index's interval-table pyramid
-(ck 8 and 10, and without one) on reads with N inside the first ck symbols
-of some lanes, reads shorter than ck, lanes at and past a read's end and a
-read as long as the row, max_k below, at and above ck; also held against
-the JAX kmer_table_full.
+group.  banded_fill runs at band widths 1 to 1023 (one to 32 slots a
+thread, the lane boundary of the left neighbour), with bands that run off
+the top and the bottom of the target, queries longer than their target, a
+one-base target, the reverse-complement anchors of retrieve_matches and
+lane counts that leave a block's last warps idle.  kmer_table_full runs
+from the walk index's interval-table pyramid (ck 8 and 10, and without
+one) on reads with N inside the first ck symbols of some lanes, reads
+shorter than ck, lanes at and past a read's end and a read as long as
+the row, max_k below, at and above ck; also held against the JAX
+kmer_table_full.
 """
 import numpy as np
 import pytest
@@ -49,7 +54,7 @@ def seedscan_lib(tmp_path_factory):
 @pytest.fixture(scope="module")
 def msa_lib(tmp_path_factory):
     return build_host("msa.cu", tmp_path_factory.mktemp("msa_shim"),
-                      ("lrsc_lf_extract",), one_block=True)
+                      ("lrsc_lf_extract", "lrsc_banded_fill"), one_block=True)
 
 
 def _t(a):
@@ -275,6 +280,110 @@ def test_scan_automaton_kernel_reads_past_a_mask_segment(seedscan_lib):
         assert torch.equal(g, w)
     n, starts = want[0], want[1]
     assert int(n[0]) > 20 and int(starts[0, : int(n[0])].max()) > 8192
+
+
+def fill_lanes(seed, N, Q, T, bw, origin=None, t_len=None, q_len=None):
+    """banded_fill's inputs for N lanes: each target a copy of part of a
+    random query with ~12% substitutions, insertions and deletions (so
+    every score path of the band is taken), padded as encode_pairs pads
+    (query 0, target -1).  origin, t_len and q_len default to random
+    values around the band's diagonal."""
+    rng = np.random.default_rng(seed)
+    q = np.zeros((N, Q), np.int8)
+    t = np.full((N, T), -1, np.int8)
+    bases = np.frombuffer(b"ACGT", np.int8)
+    q_len = np.full(N, Q) if q_len is None else np.asarray(q_len)
+    t_len = (rng.integers(1, T + 1, size=N) if t_len is None else np.asarray(t_len))
+    for n in range(N):
+        qs = rng.choice(bases, size=int(q_len[n]))
+        q[n, : len(qs)] = qs
+        ts = []
+        for ch in np.concatenate([qs, rng.choice(bases, size=T)]):
+            x = rng.random()
+            if x < 0.05:
+                ts.append(rng.choice(bases))
+            elif x < 0.08:
+                continue
+            elif x < 0.12:
+                ts += [ch, rng.choice(bases)]
+            else:
+                ts.append(ch)
+        t[n, : int(t_len[n])] = np.array(ts[: int(t_len[n])], np.int8)
+    if origin is None:
+        origin = rng.integers(-bw, max(T - Q // 2, 1), size=N)
+    return (torch.from_numpy(q), torch.from_numpy(t),
+            torch.from_numpy(np.asarray(t_len, np.int32)),
+            torch.from_numpy(np.asarray(origin, np.int32)), bw)
+
+
+def rc_lanes():
+    """retrieve_matches' reverse-complement pileup (core/msa.py:324-326):
+    the anchors at the query's and each candidate's last k-mer, band 200."""
+    rng = np.random.default_rng(9)
+    query = "".join(rng.choice(list("ACGT"), size=150))
+    keep = []
+    for n in range(7):
+        ext = "".join(rng.choice(list("ACGT"), size=int(rng.integers(0, 60))))
+        body = list(query[int(rng.integers(0, 40)):])
+        for _ in range(12):
+            body[int(rng.integers(0, len(body)))] = "ACGT"[int(rng.integers(0, 4))]
+        keep.append(ext + "".join(body))
+    k = 17
+    s1 = [len(query) - k] * len(keep)
+    s2 = [len(m) - k for m in keep]
+    q, t, tl, org, bw = msa_kernels.encode_pairs([query] * len(keep), keep, s1, s2, 200)
+    return (torch.from_numpy(q), torch.from_numpy(t), torch.from_numpy(tl),
+            torch.from_numpy(org), bw)
+
+
+# case -> banded_fill's inputs (q, t, t_len, origin, bw); N is no multiple
+# of the kernel's 4 warps a block in every case but "bw32"
+FILL_CASES = {
+    "bw1": lambda: fill_lanes(1, 5, 30, 40, 1),
+    "bw31": lambda: fill_lanes(2, 6, 40, 50, 31),
+    "bw32": lambda: fill_lanes(3, 8, 40, 50, 32),
+    "bw33": lambda: fill_lanes(4, 7, 40, 60, 33),
+    "bw201": lambda: fill_lanes(5, 6, 60, 90, 201),
+    "bw1023": lambda: fill_lanes(6, 2, 24, 40, 1023),
+    # the band starts rows above the target's first base
+    "off-top": lambda: fill_lanes(7, 5, 40, 50, 33, origin=[-40, -33, -20, -5, -1]),
+    # targets shorter than the band: it runs off the bottom
+    "off-bottom": lambda: fill_lanes(8, 5, 40, 70, 65, origin=[-32, -10, 0, 3, -60],
+                                     t_len=[20, 33, 60, 5, 64]),
+    # queries longer than their targets; the shorter queries padded
+    "long-query": lambda: fill_lanes(10, 3, 80, 30, 33, origin=[-16, -2, 5],
+                                     t_len=[30, 25, 12], q_len=[80, 61, 45]),
+    "one-base-target": lambda: fill_lanes(11, 3, 20, 1, 33, origin=[-16, -1, 0],
+                                          t_len=[1, 1, 1]),
+    "rc-anchors": rc_lanes,
+}
+
+
+@pytest.mark.parametrize("case", sorted(FILL_CASES))
+def test_banded_fill_kernel_matches_plain(msa_lib, case):
+    q, t, t_len, origin, bw = FILL_CASES[case]()
+    N, Q = q.shape
+    T = t.shape[1]
+    scores = (1, -1, -8)
+    cells = torch.full((N, Q + 1, bw), 7, dtype=torch.int32)   # every cell is written
+    rc = msa_lib.lrsc_banded_fill(q.data_ptr(), t.data_ptr(), t_len.data_ptr(),
+                                  origin.data_ptr(), N, Q, T, bw, *scores,
+                                  cells.data_ptr(), None)
+    assert rc == 0
+    want = msa_kernels.banded_fill_plain(q, t, t_len, origin, bw, scores)
+    assert torch.equal(cells, want), (cells != want).nonzero()[:5].tolist()
+    assert (want != 0).any()
+
+
+def test_banded_fill_kernel_refuses_wide_bands(msa_lib):
+    q, t, t_len, origin, _ = fill_lanes(1, 1, 4, 4, 1)
+    cells = torch.zeros((1, 5, 1025), dtype=torch.int32)
+    for bw in (0, 1025):
+        assert msa_lib.lrsc_banded_fill(q.data_ptr(), t.data_ptr(), t_len.data_ptr(),
+                                        origin.data_ptr(), 1, 4, 4, bw, 1, -1, -8,
+                                        cells.data_ptr(), None) != 0
+    with pytest.raises(ValueError):
+        msa_kernels._banded_fill_kernel(q, t, t_len, origin, 1025, (1, -1, -8))
 
 
 @pytest.fixture(scope="module")

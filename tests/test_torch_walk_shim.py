@@ -11,7 +11,10 @@ walk_queue_plain, every field, tolerance 0 (ints, bools, labels and f32
 error rates that feed compares).  walk_prep is held against prep_plain on
 banks and batches whose tasks have no terminal window, one or all 48,
 init_k below, at and far above CK, and a bank whose largest init_k (21)
-exceeds most of its tasks'.
+exceeds most of its tasks'.  wcache_level_up is held against
+wcache_level_up_plain on the host trie's levels 3 to 8 (64 to 65,536
+parents, the smallest below one block), and the order it visits the
+parents in is checked to be the order of their intervals on level 8.
 """
 import numpy as np
 import pytest
@@ -30,7 +33,8 @@ torch.set_num_threads(1)
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     return build_host("walk.cu", tmp_path_factory.mktemp("walk_shim"),
-                      ("lrsc_walk_steps", "lrsc_walk_queue", "lrsc_walk_prep"))
+                      ("lrsc_walk_steps", "lrsc_walk_queue", "lrsc_walk_prep",
+                       "lrsc_wcache_level_up"))
 
 
 @pytest.fixture(scope="module")
@@ -229,3 +233,86 @@ def test_walk_prep_parts_write_their_own_outputs(lib, corpora):
         assert torch.equal(got_c[part], want_c[part]) and (got_c[~part] == 7).all(), bits
         for k in ("f_lo", "f_hi", "r_lo", "r_hi", "freq"):
             assert torch.equal(out[k], want[k]) == (bits == tw.PREP_CHAIN), (bits, k)
+
+
+RUN = 2   # csrc/walk.cu kLevelRun: the bases of a parent code a thread takes from g
+
+
+def level_up_order(k):
+    """The parent code each thread of the level-up kernel visits
+    (csrc/walk.cu level_up_parent): its last RUN bases those of g, the
+    k - RUN bases before them the base-4 digits of g >> 2 RUN in reverse
+    order."""
+    g = np.arange(4 ** k, dtype=np.int64)
+    if k <= RUN:
+        return g
+    m, code = g >> (2 * RUN), np.zeros_like(g)
+    for _ in range(k - RUN):
+        code = (code << 2) | (m & 3)
+        m >>= 2
+    return (code << (2 * RUN)) | (g & (4 ** RUN - 1))
+
+
+def digit_reversed(k):
+    """Codes of level k in base-4 digit-reversed order: by the last base,
+    then the one before, ...: the order of reverse(w)."""
+    g = np.arange(4 ** k, dtype=np.int64)
+    code = np.zeros_like(g)
+    for _ in range(k):
+        code = (code << 2) | (g & 3)
+        g >>= 2
+    return code
+
+
+@pytest.fixture(scope="module")
+def trie(corpora):
+    """The host trie of the seed-33 corpus (get_tables' levels 1..8)."""
+    c = corpora["pair"]
+    return c["td"], tw.build_kmer_levels(c["th"], 8)
+
+
+@pytest.mark.parametrize("k", [3, 4, 5, 6, 7, 8])
+def test_wcache_level_up_kernel_matches_plain(lib, trie, k):
+    td, levels = trie
+    st = tuple(torch.from_numpy(np.ascontiguousarray(levels[k - 1][:, i])) for i in range(4))
+    n = st[0].shape[0]
+    assert n == 4 ** k
+    outs = [torch.full((4 * n,), 7, dtype=torch.int32) for _ in range(4)]
+    name = "wcache_level_up"
+    p = cuda.ptr_array(tw._index_ptrs(name, td, on_card=False)
+                       + [cuda.check(name, t, torch.int32, (n,), on_card=False) for t in st]
+                       + [o.data_ptr() for o in outs])
+    assert lib.lrsc_wcache_level_up(p, cuda.int_array(tw._index_dims(td) + [n, k]), None) == 0
+    want = tw.wcache_level_up_plain(td, *st)
+    for g, w in zip(outs, want):
+        assert torch.equal(g, w), (g != w).nonzero()[:5].tolist()
+    # the host trie's next level: the same intervals
+    if k < 8:
+        assert np.array_equal(torch.stack(outs, 1).numpy(), levels[k])
+    # a level other than the parents' is refused, by the entry and the wrapper
+    bad = cuda.int_array(tw._index_dims(td) + [n, k + 1])
+    assert lib.lrsc_wcache_level_up(p, bad, None) != 0
+    with pytest.raises(ValueError):
+        tw.wcache_level_up(td, *st, k=k + 1)
+
+
+def test_wcache_level_up_visits_parents_in_interval_order(trie):
+    """On level 8: along the base-4 digit-reversed code order, f_lo never
+    falls and r_lo never rises over the parents whose intervals are not
+    empty; the kernel's order is that order cut into 4^RUN streams (by the
+    last RUN bases) and interleaved, so each stream sweeps both BWTs
+    once."""
+    _, levels = trie
+    lv = levels[7]
+    order = digit_reversed(8)
+    f_lo, f_hi, r_lo, r_hi = (lv[order, i].astype(np.int64) for i in range(4))
+    live = (f_lo <= f_hi) & (r_lo <= r_hi)
+    assert live.sum() > 10_000
+    assert (np.diff(f_lo[live]) >= 0).all()
+    assert (np.diff(r_lo[live]) <= 0).all()
+    visit = level_up_order(8)
+    assert sorted(visit.tolist()) == list(range(4 ** 8))
+    streams, size = 4 ** RUN, 4 ** (8 - RUN)
+    for d in range(streams):
+        block = int(digit_reversed(RUN)[d])   # the last bases d, as the order ranks them
+        assert np.array_equal(visit[d::streams], order[block * size : (block + 1) * size])
