@@ -28,8 +28,12 @@ exits non-zero without the final result line):
             times (CUDA events, median of 5 after one warm-up) and the least
             time the card needs for the same work on the first chunk;
             scan_automaton's time, its longest read's dependent rounds and
-            the us per round on every chunk, and the times of the other two
-            slot kernels there
+            the us per round on every chunk, and there the event and device
+            times of attributes, estimate_best and remove_hitchhiking,
+            estimate_best's longest pole walk (k steps, load rounds) and
+            the chain floor of attributes and estimate_best: the device
+            time of the kernel launched on the chunk's longest read alone,
+            or on the seed whose pole walks the most k steps alone
 5. walks    each walk kernel against its plain version on the card, on the
             gap tasks the 256 noisy reads enumerate, exactly: every
             level-up of the interval tables (8 -> 9 .. 11 -> 12, each with
@@ -93,7 +97,8 @@ exits non-zero without the final result line):
             over the 15%-error reads (trace-dp), the same
 12. throughput  the stream over the 2048 further reads, tables warm, four
             times: the DP fallback's loops in numpy, on the card, on the
-            card, in numpy; the outputs equal
+            card, in numpy; the outputs equal; the seed kernels' launches
+            of each turn
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -662,6 +667,17 @@ def bound(nbytes: float, nops: float):
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
+def longest_pole(freq, n, starts, sizes, statics, pole_steps):
+    """estimate_best's inputs cut to the one seed whose pole walks the most
+    k steps (pole_steps: estimate_best_plain's stats["pole_steps"]): its
+    read's rows of freq, n = 1 and the seed's records in slot 0."""
+    import numpy as np
+
+    _, r, j = (int(i) for i in np.unravel_index(int(pole_steps.argmax()), pole_steps.shape))
+    return (freq[:, r : r + 1].contiguous(), n.new_ones(1),
+            *(t[r : r + 1, j : j + 1].contiguous() for t in (starts, sizes, statics)))
+
+
 def phase_kernels(corrector, sets):
     """Every kernel against its plain version on every 64-read chunk of
     each read set (name, items); times and bounds on the first set's chunk
@@ -715,6 +731,13 @@ def phase_kernels(corrector, sets):
         attr = calls["attributes"][0]()
         err["attributes"] = max(err["attributes"],
                                 max_abs_err(attr, calls["attributes"][1]()))
+        # the chain floor: one block's chain, the longest read alone
+        r = int(lens.argmax())
+        one = (fscan[r : r + 1], prefix[r : r + 1], lens[r : r + 1])
+        attr_times = dict(attr_ms=round(time_ms(calls["attributes"][0]), 4),
+                          attr_device_ms=round(device_ms(calls["attributes"][0]), 4),
+                          attr_floor_ms=round(device_ms(lambda: seedscan.attributes(
+                              *one, rep_thr, pp.scan_kmer_len)), 4))
         auto_args = (freq, valid, attr, prefix, lens, thr, pp.start_kmer_len,
                      pp.kmer_len_up_bound, tuple(pp.offset), hh)
         # the seed slots the main path gives this width, and on a wider
@@ -756,9 +779,19 @@ def phase_kernels(corrector, sets):
                                                           pp.radius, hh))
             err["remove_hitchhiking"] = max(err["remove_hitchhiking"], max_abs_err(
                 calls["remove_hitchhiking"][0](), calls["remove_hitchhiking"][1]()))
+            # the chain floor: the seed whose pole walks the most steps alone
+            steps = best_stats["pole_steps"]
+            pole = longest_pole(freq, n, starts, sizes, statics, steps)
             auto_chunks[-1].update(
                 best_ms=round(time_ms(calls["estimate_best"][0]), 4),
-                hitch_ms=round(time_ms(calls["remove_hitchhiking"][0]), 4))
+                best_device_ms=round(device_ms(calls["estimate_best"][0]), 4),
+                longest_pole_steps=int(steps.max()),
+                longest_pole_rounds=int(steps.max()) // 32 + 1,
+                best_floor_ms=round(device_ms(lambda: seedscan.estimate_best(
+                    *pole, pp.pb_coverage)), 4),
+                hitch_ms=round(time_ms(calls["remove_hitchhiking"][0]), 4),
+                hitch_device_ms=round(device_ms(calls["remove_hitchhiking"][0]), 4),
+                **attr_times)
         torch.cuda.synchronize()
         if ci or name != sets[0][0]:
             continue
@@ -802,6 +835,12 @@ def phase_kernels(corrector, sets):
             rec[k] = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
                       "bound_ms": b_ms, "bound_by": b_by}
         rec["kmer_table_full"]["device_ms"] = table_chunks[-1]["device_ms"]
+        row = auto_chunks[-1]
+        for k, pre in (("attributes", "attr"), ("estimate_best", "best"),
+                       ("remove_hitchhiking", "hitch")):
+            rec[k]["device_ms"] = row[f"{pre}_device_ms"]
+        for k, pre in (("attributes", "attr"), ("estimate_best", "best")):
+            rec[k]["chain_floor_ms"] = row[f"{pre}_floor_ms"]
         rec["_shape"] = dict(R=R, L=L, K=K, slots=slots, rows=rows, queries=queries,
                              row_loads=loads, pyramid_entries=entries,
                              lanes_by_clean_prefix=hist(c.cpu().numpy()),
@@ -817,14 +856,18 @@ def phase_kernels(corrector, sets):
     say("kernels: " + json.dumps([
         {"name": k, "equal": r["equal"], "launches": cuda.LAUNCHES[k],
          "ms": round(r["ms"], 4), "plain_ms": round(r["plain_ms"], 4),
-         "bound_ms": round(r["bound_ms"], 5)}
+         "bound_ms": round(r["bound_ms"], 5),
+         **{x: r[x] for x in ("device_ms", "chain_floor_ms") if x in r}}
         for k, r in rec.items()]) + f" shape {json.dumps(shape)}")
     # the automaton's chain: one block per read, so a launch lasts its
     # longest read's dependent rounds (a window started, or 32 speculative
     # inner iterations); iterations: the plain version's lane-steps
     say("kernels: scan_automaton per chunk (set, chunk, width, seed slots, ms, longest "
         "read's rounds, us per round, seeds, reads with full slots, inner iterations; "
-        "estimate_best and remove_hitchhiking ms at those slots): "
+        "estimate_best and remove_hitchhiking event and device ms at those slots, "
+        "estimate_best's longest pole in k steps and in load rounds, its chain floor "
+        "(device ms of that pole's seed alone); attributes' event and device ms and chain "
+        "floor (device ms of the longest read alone)): "
         + json.dumps(auto_chunks))
     rec["scan_automaton"]["chunks"] = auto_chunks
     say("kernels: kmer_table_full per chunk (set, chunk, width, max_abs_err, ms, device "
@@ -1960,12 +2003,14 @@ def phase_throughput(hix, wx, params, extra):
     fills in numpy (msa_dev None, as before they were ported) and on the
     card, in turns host, card, card, host; the four outputs equal."""
     from longreadselfcorrect_tpu_torch.core.batch_correct import BatchedSelfCorrector
+    from longreadselfcorrect_tpu_torch.ops import cuda
 
     first = None
     for route in ("host", "card", "card", "host"):
         corrector = BatchedSelfCorrector(hix, wx, params)
         if route == "host":
             corrector.msa_dev = None
+        cuda.reset_launches()
         t0 = time.perf_counter()
         results = run_stream(corrector, extra)
         dt = time.perf_counter() - t0
@@ -1977,7 +2022,8 @@ def phase_throughput(hix, wx, params, extra):
                 check(getattr(a, name) == getattr(b, name),
                       f"throughput: read {a.read_id} {name} differs between DP routes")
         say(f"throughput: DP route {route}, tables warm, "
-            f"{stream_line(corrector, results, dt)}")
+            f"{stream_line(corrector, results, dt)}; seed kernel launches "
+            + json.dumps({k: cuda.LAUNCHES[k] for k in SEED_KERNELS}))
 
 
 def main() -> int:

@@ -132,7 +132,8 @@ def attributes(freq_scan, prefix, lens, rep_thr: float, scan_k: int):
     args = [cuda.check(name, freq_scan, I32, (R, L)),
             cuda.check(name, prefix, I32, (R, L + 1, 4)),
             cuda.check(name, lens, I32, (R,))]
-    scratch = torch.empty((R, 4, L), dtype=I32, device=freq_scan.device)
+    # each read's four flag masks and their word prefixes
+    scratch = torch.empty((R, 8, -(-L // 32)), dtype=I32, device=freq_scan.device)
     out = torch.empty((R, L), dtype=I32, device=freq_scan.device)
     cuda.launch(name, "lrsc_attributes", *args, R, L, scan_k,
                 float(np.float32(rep_thr)), _RATIO_C, scratch.data_ptr(),
@@ -345,7 +346,9 @@ def scan_automaton(freq, valid, attr, prefix, lens, thr_table, start_kmer: int,
 
 def estimate_best_plain(freq, n, starts, sizes, statics, pb_coverage: int,
                         stats: dict | None = None):
-    """stats, if given, gets "walk_steps": the lane-steps of both walks."""
+    """stats, if given, gets "walk_steps": the lane-steps of both walks,
+    and "pole_steps": int32 [2, R, S], the k steps each slot's start (0)
+    and end (1) pole took."""
     K, R, L = freq.shape
     dev = freq.device
     upper = pb_coverage >> 1
@@ -372,6 +375,7 @@ def estimate_best_plain(freq, n, starts, sizes, statics, pb_coverage: int,
         size_bound = torch.where(bit > 0, sizes, statics)
         oor = oor0 & active
         steps = 0
+        taken = torch.zeros_like(starts)
         while bool(active.any()):
             steps += int(active.sum()) if stats is not None else 0
             go = active & ((bit ^ kf) > (bit ^ freq_bound)) & (
@@ -381,14 +385,16 @@ def estimate_best_plain(freq, n, starts, sizes, statics, pb_coverage: int,
             kf = torch.where(go, kf2, kf)
             oor = oor | (go & o2)
             k = k2
+            taken += go.to(I32)
             active = active & go
         back = valid_seed & (bit != 0) & ((bit ^ kf) < (bit ^ cors_bound))
-        return torch.where(back, k - bit, k), oor, steps
+        return torch.where(back, k - bit, k), oor, steps, taken
 
-    sk, oor1, st1 = walk(True)
-    ek, oor2, st2 = walk(False)
+    sk, oor1, st1, t1 = walk(True)
+    ek, oor2, st2, t2 = walk(False)
     if stats is not None:
         stats["walk_steps"] = stats.get("walk_steps", 0) + st1 + st2
+        stats["pole_steps"] = torch.stack([t1, t2])
     return sk, ek, oor1 | oor2
 
 

@@ -1,6 +1,8 @@
-"""scan_automaton, estimate_best, remove_hitchhiking and lf_extract of
-csrc/seedscan.cu and csrc/msa.cu, and kmer_table_full of csrc/kmer_table.cu,
-compiled for the host, equal their plain versions bit for bit.
+"""attributes, scan_automaton, estimate_best, remove_hitchhiking and
+lf_extract of csrc/seedscan.cu and csrc/msa.cu, and kmer_table_full of
+csrc/kmer_table.cu, compiled for the host, equal their plain versions bit
+for bit; on the hand-made attributes and estimate_best inputs the plain
+versions are also held to the JAX package's.
 
 No card here: each source is compiled with g++ behind the CUDA shim of
 tests/test_torch_cuda_shim.py, blocks one at a time (the static shared
@@ -32,6 +34,7 @@ import pytest
 import torch
 
 from longreadselfcorrect_tpu_torch.core import alphabet as ab
+from longreadselfcorrect_tpu_torch.core.threshold import KmerThreshold
 from longreadselfcorrect_tpu_torch.index.fmindex import FMIndex, IndexSet
 from longreadselfcorrect_tpu_torch.index import build
 from longreadselfcorrect_tpu_torch.ops import msa_kernels, scan, seedscan
@@ -47,7 +50,7 @@ torch.set_num_threads(1)
 @pytest.fixture(scope="module")
 def seedscan_lib(tmp_path_factory):
     return build_host("seedscan.cu", tmp_path_factory.mktemp("seedscan_shim"),
-                      ("lrsc_scan_automaton", "lrsc_estimate_best",
+                      ("lrsc_attributes", "lrsc_scan_automaton", "lrsc_estimate_best",
                        "lrsc_remove_hitchhiking"), one_block=True)
 
 
@@ -166,6 +169,215 @@ def test_remove_hitchhiking_kernel_past_128_slots(seedscan_lib):
     assert torch.equal(keep, want)
     dropped = (~want[0, :300]).nonzero()[:, 0]
     assert int(dropped.max()) > 128 and (~want[2, 128:479]).any()
+
+
+def _attr_rows(seed, seqs, L, freq_of, lens=None):
+    """attributes' inputs for hand-made reads: prefix int32 [R, L+1, 4] of
+    the reads (PAD past each), freq_scan from freq_of(rng, R, L) and lens
+    (default: each read's length)."""
+    rng = np.random.default_rng(seed)
+    R = len(seqs)
+    mat = np.full((R, L), ab.PAD_RANK, np.int8)
+    for i, s in enumerate(seqs):
+        e = ab.encode(s)
+        mat[i, : len(e)] = e
+    onehot = (mat[:, :, None] == np.arange(1, 5, dtype=np.int8)).astype(np.int32)
+    prefix = np.zeros((R, L + 1, 4), np.int32)
+    prefix[:, 1:] = np.cumsum(onehot, axis=1)
+    lens = np.array([len(s) for s in seqs] if lens is None else lens, np.int32)
+    return _t(freq_of(rng, R, L).astype(np.int32)), _t(prefix), _t(lens)
+
+
+def _random_freq(p_zero=0.2, p_fake=0.1, hi=40):
+    def f(rng, R, L):
+        x = rng.integers(1, hi, size=(R, L))
+        u = rng.random((R, L))
+        return np.where(u < p_fake, -1, np.where(u < p_fake + p_zero, 0, x))
+    return f
+
+
+def _acgt(rng, n):
+    return "".join(rng.choice(list("ACGT"), size=n))
+
+
+def _eff_zero_left(rng, R, L):
+    """eff == 0 on [0, 200), low freqs past it, and six repeats at 400..405:
+    a window right of 352 sees 6 repeats in 301 positions (ratio 0.0199,
+    mode 2), but box_garbage subtracts the 200 zeros left of the window, so
+    its size is 501 and the mode 1."""
+    f = np.full((R, L), 3)
+    f[:, :200] = 0
+    f[:, 400:406] = 30
+    return f
+
+
+# name -> (rows(), rep_thr, scan_k)
+ATTR_ROWS = {
+    # L > 1024: 72 mask words; an empty read
+    "wide": (lambda: _attr_rows(1, [_acgt(np.random.default_rng(2), n)
+                                    for n in (2304, 1900, 0)], 2304, _random_freq()),
+             12.0, 19),
+    # positions past len (freq left set there), len 0 and 1, len = L
+    "past-len": (lambda: _attr_rows(3, [_acgt(np.random.default_rng(4), n)
+                                        for n in (100, 1, 640, 300)], 640,
+                                    _random_freq(0.3, 0.0), lens=[100, 1, 640, 0]),
+                 8.0, 19),
+    # every window low-complexity: eff = -1 everywhere
+    "all-low-complexity": (lambda: _attr_rows(5, ["A" * 700, "AC" * 350, "AAAAT" * 140],
+                                              704, _random_freq()), 12.0, 19),
+    "eff-zero-left": (lambda: _attr_rows(6, [_acgt(np.random.default_rng(7), 1200)] * 2,
+                                         1216, _eff_zero_left, lens=[1200, 1216]),
+                      12.0, 19),
+    # rep_thr <= 0: eff == 0 is a repeat (repeat) but not rep_rem
+    "rep-thr-zero": (lambda: _attr_rows(8, [_acgt(np.random.default_rng(9), n)
+                                            for n in (900, 400)], 928,
+                                        _random_freq(0.5, 0.1, 3)), 0.0, 19),
+    "rep-thr-negative": (lambda: _attr_rows(10, [_acgt(np.random.default_rng(11), 500)],
+                                            512, _random_freq(0.3, 0.3, 3)), -1.0, 19),
+}
+
+
+def _attr_call(lib, fs, prefix, lens, rep_thr, scan_k):
+    R, L = fs.shape
+    out = torch.full((R, L), 7, dtype=torch.int32)
+    scratch = torch.full((R, 8, -(-L // 32)), -5, dtype=torch.int32)
+    assert lib.lrsc_attributes(fs.data_ptr(), prefix.data_ptr(), lens.data_ptr(), R, L,
+                               scan_k, float(np.float32(rep_thr)), seedscan._RATIO_C,
+                               scratch.data_ptr(), out.data_ptr(), None) == 0
+    return out
+
+
+@pytest.mark.parametrize("case", ["main", "smax", *ATTR_ROWS])
+def test_attributes_kernel_matches_plain(seedscan_lib, stages, case):
+    """attributes (masks and prefixes in the device scratch row) against
+    attributes_plain: the JAX-made chunks, then hand-made rows."""
+    if case in ATTR_ROWS:
+        rows, rep_thr, scan_k = ATTR_ROWS[case]
+        fs, prefix, lens = rows()
+    else:
+        pp, st = stages
+        s = st[case]
+        thresh = KmerThreshold(-1, 50, pp.pb_coverage)
+        fs, prefix, lens = _t(s["freq"][pp.scan_kmer_len]), _t(s["prefix"]), _t(s["lens"])
+        rep_thr, scan_k = float(thresh.get(2, pp.scan_kmer_len)), pp.scan_kmer_len
+    want = seedscan.attributes_plain(fs, prefix, lens, rep_thr, scan_k)
+    assert torch.equal(_attr_call(seedscan_lib, fs, prefix, lens, rep_thr, scan_k), want)
+    if case == "eff-zero-left":
+        assert (want[0, 360:420] == 1).all() and (want[1, 360:420] == 1).all()
+    if case == "smax":
+        assert (want[1] == 2).any()
+
+
+def test_attributes_kernel_refuses_no_scratch(seedscan_lib):
+    fs, prefix, lens = ATTR_ROWS["past-len"][0]()
+    R, L = fs.shape
+    assert seedscan_lib.lrsc_attributes(fs.data_ptr(), prefix.data_ptr(), lens.data_ptr(),
+                                        R, L, 19, 8.0, seedscan._RATIO_C, None,
+                                        torch.empty((R, L), dtype=torch.int32).data_ptr(),
+                                        None) != 0
+
+
+@pytest.mark.parametrize("case", sorted(ATTR_ROWS))
+def test_attributes_plain_matches_jax_on_rows(case):
+    """The hand-made rows through the JAX package's _attributes: the plain
+    version the kernel is held to is the reference's on them too."""
+    from longreadselfcorrect_tpu.ops import seedscan as jseedscan
+    import jax.numpy as jnp
+
+    rows, rep_thr, scan_k = ATTR_ROWS[case]
+    fs, prefix, lens = rows()
+    want = jseedscan._attributes(jnp.asarray(fs.numpy()), jnp.asarray(prefix.numpy()),
+                                 jnp.asarray(lens.numpy()), jnp.float32(rep_thr), scan_k)
+    assert np.array_equal(seedscan.attributes_plain(fs, prefix, lens, rep_thr,
+                                                    scan_k).numpy(), np.asarray(want))
+
+
+def _best_inputs(seed, K, R, L, smax, n, stat, extra, start, cut, hi=(16, 60), lo=(0, 15)):
+    """estimate_best's inputs: freq[k, r, p] in hi below a per-position cut
+    level and in lo from it on (pb_coverage 30: upper 15, lower 7), so a
+    pole walks up until the cut or its size; records random in the given
+    ranges (statics + extra the sizes), slots past n included."""
+    rng = np.random.default_rng(seed)
+    cuts = rng.integers(*cut, size=(R, L))
+    k = np.arange(K)[:, None, None]
+    freq = np.where(k < cuts[None], rng.integers(*hi, size=(K, R, L)),
+                    rng.integers(*lo, size=(K, R, L)))
+    statics = rng.integers(*stat, size=(R, smax))
+    sizes = statics + rng.integers(*extra, size=(R, smax))
+    starts = rng.integers(*start, size=(R, smax))
+    return tuple(_t(np.asarray(x, np.int32)) for x in (freq, n, starts, sizes, statics))
+
+
+BEST_CASES = {
+    # walks of up to ~70 steps: two and three rounds of 32
+    "two-rounds": dict(K=96, R=3, L=200, smax=64, n=[40, 64, 7], stat=(10, 20),
+                       extra=(30, 75), start=(0, 200), cut=(40, 100)),
+    # walks past the table's top (k >= K) and static sizes below 1 (k < 1)
+    "leaves-table": dict(K=30, R=2, L=100, smax=32, n=[32, 20], stat=(-4, 34),
+                         extra=(0, 40), start=(-5, 105), cut=(20, 45)),
+    # end poles whose position start + size - k falls below 0 (and starts past L)
+    "end-clamps": dict(K=40, R=2, L=60, smax=32, n=[32, 32], stat=(12, 30),
+                       extra=(-14, 4), start=(-3, 64), cut=(5, 45)),
+    # the freq at the static size between the bounds (bit 0) or below (bit -1)
+    "bit-zero-down": dict(K=40, R=2, L=80, smax=32, n=[30, 32], stat=(8, 30),
+                          extra=(0, 20), start=(0, 80), cut=(0, 45), hi=(0, 25),
+                          lo=(0, 12)),
+    # empty slots (garbage statics), a read with no seed, n past the slots
+    "empty-slots": dict(K=40, R=4, L=80, smax=48, n=[0, 5, 48, 100], stat=(-50, 50),
+                        extra=(0, 30), start=(0, 80), cut=(10, 45)),
+    # 1200 seeds, split among the kernel's blocks of slots
+    "many-seeds": dict(K=50, R=1, L=4000, smax=1280, n=[1200], stat=(15, 22),
+                       extra=(0, 40), start=(0, 4000), cut=(10, 55)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BEST_CASES))
+def test_estimate_best_kernel_matches_plain(seedscan_lib, case):
+    spec = dict(BEST_CASES[case])
+    K, R, L, smax = (spec.pop(x) for x in ("K", "R", "L", "smax"))
+    freq, n, starts, sizes, statics = _best_inputs(sorted(BEST_CASES).index(case), K, R, L,
+                                                   smax, **spec)
+    sk, ek = (torch.full((R, smax), 7, dtype=torch.int32) for _ in range(2))
+    oor = torch.ones((R, smax), dtype=torch.bool)
+    assert seedscan_lib.lrsc_estimate_best(
+        freq.data_ptr(), n.data_ptr(), starts.data_ptr(), sizes.data_ptr(),
+        statics.data_ptr(), K, R, L, smax, 30, sk.data_ptr(), ek.data_ptr(),
+        oor.data_ptr(), None) == 0
+    st = {}
+    want = seedscan.estimate_best_plain(freq, n, starts, sizes, statics, 30, stats=st)
+    for g, w in zip((sk, ek, oor), want):
+        assert torch.equal(g, w)
+    # each case reaches what it is for
+    steps, valid = st["pole_steps"], torch.arange(smax)[None, :] < n[:, None]
+    if case == "two-rounds":
+        assert int(steps.max()) > 64
+    if case == "leaves-table":
+        assert (want[2] & (statics < 1)).any() and (want[2] & (statics >= 1)).any()
+    if case == "end-clamps":
+        assert (valid & (starts + sizes - statics < 0)).any()
+    if case == "bit-zero-down":
+        kf = freq[statics.clamp(1, K - 1).long(), torch.arange(R)[:, None],
+                  starts.clamp(0, L - 1).long()]
+        assert (valid & (kf >= 7) & (kf <= 15)).any() and (valid & (kf < 7)).any()
+    if case == "empty-slots":
+        assert torch.equal(want[0][~valid], statics[~valid]) and not want[2][~valid].any()
+    if case == "many-seeds":
+        assert int((steps[:, 0, 1100:1200] > 0).sum()) > 50
+
+
+@pytest.mark.parametrize("case", sorted(BEST_CASES))
+def test_estimate_best_plain_matches_jax_on_cases(case):
+    """BEST_CASES through the JAX package's _estimate_best: the plain
+    version the kernel is held to is the reference's on them too."""
+    from longreadselfcorrect_tpu.ops import seedscan as jseedscan
+    import jax.numpy as jnp
+
+    spec = dict(BEST_CASES[case])
+    K, R, L, smax = (spec.pop(x) for x in ("K", "R", "L", "smax"))
+    ins = _best_inputs(sorted(BEST_CASES).index(case), K, R, L, smax, **spec)
+    want = jseedscan._estimate_best(*(jnp.asarray(x.numpy()) for x in ins), 30)
+    for g, w in zip(seedscan.estimate_best_plain(*ins, 30), want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
 
 
 @pytest.fixture(scope="module")

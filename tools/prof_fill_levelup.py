@@ -29,17 +29,14 @@ Exits 1 if a variant that is meant to be exact differs from the plain
 version (levelup-loads-only, a measuring aid, is not).
 """
 import argparse
-import ctypes
-import json
 import os
 import subprocess
 import sys
 import time
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-import chip_smoke as cs  # noqa: E402
+from kernel_variants import REPO, build, cs, device_ms, say, variant  # noqa: E402
 
 OUT = os.path.join(REPO, "build", "prof_fill_levelup")
 SOURCES = ("msa.cu", "walk.cu", "walk.cuh", "rank.cuh", "ladder.cuh")
@@ -180,57 +177,6 @@ def variants(csrc):
     }
 
 
-def variant(name, edits, csrc):
-    """build/prof_fill_levelup/<name>/ with csrc's sources after the edits."""
-    d = os.path.join(OUT, name)
-    os.makedirs(d, exist_ok=True)
-    for f in SOURCES:
-        with open(os.path.join(csrc, f)) as fh:
-            text = fh.read()
-        for ef, old, new in edits:
-            if ef == f:
-                assert old in text, (name, f, old)
-                text = text.replace(old, new)
-        with open(os.path.join(d, f), "w") as fh:
-            fh.write(text)
-    return d
-
-
-def build(specs):
-    """{(name, source): CDLL}: one nvcc per (name, directory, source), all at once."""
-    from longreadselfcorrect_tpu_torch.ops import cuda
-
-    procs = []
-    for name, d, src in specs:
-        out = os.path.join(d, src.replace(".cu", ".so"))
-        procs.append((name, src, out, subprocess.Popen(
-            [cuda.nvcc_path(), *cuda.NVCC_FLAGS, "-I", d, "-o", out, os.path.join(d, src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    libs = {}
-    for name, src, out, p in procs:
-        log, _ = p.communicate()
-        if p.returncode:
-            raise RuntimeError(f"nvcc {name}/{src} failed:\n{log[-3000:]}")
-        rep = [r for r in cs.ptxas_report(log)
-               if r[0].split("<")[0] in ("banded_fill", "wcache_level_up")]
-        say(ptxas=f"{name}/{src}", kernels=rep)
-        lib = ctypes.CDLL(out)
-        for fn in ENTRIES:
-            if hasattr(lib, fn):
-                getattr(lib, fn).restype = ctypes.c_int
-                getattr(lib, fn).argtypes = cuda._SIGNATURES[fn]
-        libs[(name, src)] = lib
-    return libs
-
-
-def device_ms(fn, reps=7):
-    return round(cs.device_ms(fn, reps=reps), 4)
-
-
-def say(**kw):
-    print(json.dumps(kw), flush=True)
-
-
 def main() -> int:
     import numpy as np
     import torch
@@ -254,15 +200,16 @@ def main() -> int:
     cs.phase_device()
     names = [v for v in a.variants.split(",") if v]
     edits = variants(cuda.CSRC)
-    specs = [(n, variant(n, edits[n], cuda.CSRC), src)
+    specs = [(n, variant(OUT, n, SOURCES, edits[n]), src)
              for n in names for src in SOURCES_OF.get(n.split("-")[0], ("msa.cu", "walk.cu"))]
     for tree in a.tree:
         name, root = tree.split("=", 1)
         tdir = os.path.join(root, "longreadselfcorrect_tpu_torch", "csrc")
-        specs += [(name, variant(name, [], tdir), src) for src in ("msa.cu", "walk.cu")]
+        specs += [(name, variant(OUT, name, SOURCES, [], tdir), src)
+                  for src in ("msa.cu", "walk.cu")]
         names = [name] + names
     t0 = time.perf_counter()
-    libs = build(specs)
+    libs = build(specs, ("banded_fill", "wcache_level_up"), ENTRIES)
     say(built_s=round(time.perf_counter() - t0, 1))
     if a.sass:
         os.makedirs(a.sass, exist_ok=True)

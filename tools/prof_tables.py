@@ -25,74 +25,16 @@ the same chunk, and walk_prep's parts (the code rows, the terminal
 windows, the chain ring with the root) alone.  One JSON line per
 measurement, the card's name and power limit first.
 """
-import ctypes
-import json
 import os
-import subprocess
 import sys
 import time
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-import chip_smoke as cs  # noqa: E402
+from kernel_variants import REPO, build, cs, device_ms, say, variant  # noqa: E402
 
 OUT = os.path.join(REPO, "build", "prof_tables")
 SOURCES = ("kmer_table.cu", "walk.cu", "walk.cuh", "rank.cuh", "ladder.cuh")
-
-
-def variant(name, edits):
-    """build/prof_tables/<name>/ with the sources after the edits
-    ((file, old, new), each old present)."""
-    from longreadselfcorrect_tpu_torch.ops import cuda
-
-    d = os.path.join(OUT, name)
-    os.makedirs(d, exist_ok=True)
-    for f in SOURCES:
-        with open(os.path.join(cuda.CSRC, f)) as fh:
-            text = fh.read()
-        for ef, old, new in edits:
-            if ef == f:
-                assert old in text, (name, f, old)
-                text = text.replace(old, new)
-        with open(os.path.join(d, f), "w") as fh:
-            fh.write(text)
-    return d
-
-
-def build(specs):
-    """{name: CDLL}: one nvcc per (name, directory, source), all at once."""
-    from longreadselfcorrect_tpu_torch.ops import cuda
-
-    procs = []
-    for name, d, src in specs:
-        out = os.path.join(d, src.replace(".cu", ".so"))
-        procs.append((name, out, subprocess.Popen(
-            [cuda.nvcc_path(), *cuda.NVCC_FLAGS, "-I", d, "-o", out, os.path.join(d, src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    libs = {}
-    for name, out, p in procs:
-        log, _ = p.communicate()
-        if p.returncode:
-            raise RuntimeError(f"nvcc {name} failed:\n{log[-3000:]}")
-        rep = [r for r in cs.ptxas_report(log) if r[0] in ("kmer_table_full", "walk_prep")]
-        print(json.dumps({"ptxas": name, "kernels": rep}), flush=True)
-        lib = ctypes.CDLL(out)
-        for fn in ("lrsc_kmer_table_full", "lrsc_walk_prep"):
-            if hasattr(lib, fn):
-                getattr(lib, fn).restype = ctypes.c_int
-                getattr(lib, fn).argtypes = cuda._SIGNATURES[fn]
-        libs[name] = lib
-    return libs
-
-
-def device_ms(fn):
-    """Median device time of fn's kernels in 7 calls (chip_smoke.device_ms)."""
-    return round(cs.device_ms(fn, reps=7), 4)
-
-
-def say(**kw):
-    print(json.dumps(kw), flush=True)
 
 
 def main() -> int:
@@ -106,7 +48,9 @@ def main() -> int:
         print("no CUDA card", file=sys.stderr)
         return 1
     cs.phase_device()
-    occ = [("rank.cuh", "  const int pa = lo, pb = hi + 1;  // prefix lengths of the two ends",
+    # (update_interval_shared's first line: occ_acgt_pair starts alike)
+    occ = [("rank.cuh", "bool live = true) {\n  const int pa = lo, pb = hi + 1;",
+            "bool live = true) {\n"
             "  if (live) update_interval(blocks, ckpt, C, nb, sym, lo, hi);\n  return;\n"
             "  const int pa = lo, pb = hi + 1;")]
     bounded = [("kmer_table.cu", "__global__ void kmer_table_full_kernel(",
@@ -116,10 +60,11 @@ def main() -> int:
     no_step = [("walk.cuh", "    wcache_get(ix, code, st);\n    from = P.CK;",
                 "    wcache_get(ix, code, st);\n    from = P.CK;\n    n = P.CK;")]
     t0 = time.perf_counter()
-    libs = build([(f"{name}/{src}", variant(name, edits), src)
+    libs = build([(name, variant(OUT, name, SOURCES, edits), src)
                   for name, edits in (("shipped", []), ("occ", occ), ("bounded", bounded),
                                       ("no-step", no_step))
-                  for src in ("kmer_table.cu", "walk.cu") if name != "no-step" or src == "walk.cu"])
+                  for src in ("kmer_table.cu", "walk.cu") if name != "no-step" or src == "walk.cu"],
+                 ("kmer_table_full", "walk_prep"), ("lrsc_kmer_table_full", "lrsc_walk_prep"))
     say(built_s=round(time.perf_counter() - t0, 1))
     hix, dix, items = cs.phase_data()[:3]
     corr = BatchedSelfCorrector(hix, dix, CorrectionParams(pb_coverage=cs.COVERAGE, genome=10))
@@ -132,7 +77,7 @@ def main() -> int:
     # kmer_table_full on chunk 0
     want = scan.kmer_table_full_plain(dix, reads, lens, max_k)
     for name in ("shipped", "occ", "bounded"):
-        fn = libs[f"{name}/kmer_table.cu"].lrsc_kmer_table_full
+        fn = libs[(name, "kmer_table.cu")].lrsc_kmer_table_full
         for levels in (wx, None):
             f = torch.empty((max_k + 1, R, L), dtype=torch.int32, device="cuda")
             v = torch.empty((max_k + 1, R, L), dtype=torch.bool, device="cuda")
@@ -172,7 +117,7 @@ def main() -> int:
                          ("batch", prep_in(prim[:40], 64, False))):
         want = walk.prep_plain(*kargs)
         for name in ("shipped", "occ", "bounded", "no-step"):
-            fn = libs[f"{name}/walk.cu"].lrsc_walk_prep
+            fn = libs[(name, "walk.cu")].lrsc_walk_prep
             res = {}
             for part, bits in (("all", walk.PREP_ALL), ("codes", walk.PREP_CODES),
                                ("terminal", walk.PREP_TERM), ("chain_root", walk.PREP_CHAIN)):
