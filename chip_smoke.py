@@ -30,10 +30,15 @@ exits non-zero without the final result line):
             scan_automaton's time, its longest read's dependent rounds and
             the us per round on every chunk, and there the event and device
             times of attributes, estimate_best and remove_hitchhiking,
-            estimate_best's longest pole walk (k steps, load rounds) and
-            the chain floor of attributes and estimate_best: the device
-            time of the kernel launched on the chunk's longest read alone,
-            or on the seed whose pole walks the most k steps alone
+            estimate_best's longest pole walk (k steps, load rounds),
+            remove_hitchhiking's most pairs in reach of one seed, and the
+            chain floor of attributes, estimate_best and remove_hitchhiking:
+            the device time of the kernel launched on the chunk's longest
+            read alone, on the seed whose pole walks the most k steps
+            alone, or on the read of the seed with the most pairs in reach
+            alone; then remove_hitchhiking on two hand-made chunks, 64
+            reads whose seeds are out of order and two reads of 18,016
+            slots
 5. walks    each walk kernel against its plain version on the card, on the
             gap tasks the 256 noisy reads enumerate, exactly: every
             level-up of the interval tables (8 -> 9 .. 11 -> 12, each with
@@ -59,9 +64,12 @@ exits non-zero without the final result line):
             (_device_seed_tables, then the host search_seeds on those
             tables) on 16, both held against phase 6's seeds; the pool
             probe (kmer_freq_scan at pbcorrect's pool, kmer_freq_single at
-            the scan k); then each of the four kernels against its plain
-            version on every chunk and on both BWTs, exactly, and against
-            kmer_table_full on the rows they share; times and bounds
+            the scan k, both from the walk index's pyramid); then each of
+            the four kernels against its plain version on every chunk and
+            on both BWTs (kmer_freq_scan with the pyramid and without),
+            exactly, and against kmer_table_full on the rows they share;
+            times and bounds (kmer_freq_scan's also from level 1, its
+            earlier route)
 8. correct  pbcorrect end to end, launch counts reset just before: the
             walk's interval tables built anew (as on a first run over a
             pack), then BatchedSelfCorrector.process_stream over all 256
@@ -546,11 +554,12 @@ def rank_traffic(ix, reads, max_k, state=None, j0=1):
     return rows, queries, loads
 
 
-def pyramid_start(wx, reads, max_k):
-    """Each lane's start in kmer_table_full with the walk index's pyramid:
-    (c: its clean prefix, the leading symbols in 1..4 inside the row, at
-    most ck and max_k; the lanes' intervals at level max(c, 1); the
-    distinct pyramid entries the lanes read)."""
+def pyramid_start(wx, reads, max_k, pool=None):
+    """Each lane's start in kmer_table_full (or, given a pool,
+    kmer_freq_scan) with the walk index's pyramid: (c: its clean prefix,
+    the leading symbols in 1..4 inside the row, at most ck and max_k; the
+    lanes' intervals at level max(c, 1); the distinct pyramid entries the
+    lanes read: every level up to c, or the pool's levels up to c and c)."""
     import torch
 
     from longreadselfcorrect_tpu_torch.ops import rank
@@ -571,7 +580,7 @@ def pyramid_start(wx, reads, max_k):
     state = torch.stack(rank.init_bi(wx.ix, sym0.clamp(0, 4)), dim=-1)
     entries = 0
     for j in range(1, len(codes) + 1):
-        have = c >= j
+        have = c >= j if pool is None or j in pool else c == j
         entries += int(torch.unique(codes[j - 1][have]).numel())
         at = c == j
         state[at] = wx.level(j)[codes[j - 1][at]]
@@ -678,6 +687,81 @@ def longest_pole(freq, n, starts, sizes, statics, pole_steps):
             *(t[r : r + 1, j : j + 1].contiguous() for t in (starts, sizes, statics)))
 
 
+def hitch_windows(n, starts, sizes, radius):
+    """int64 [R, S]: the pairs within the radius that each valid seed slot
+    is in, as query or as subject (remove_hitchhiking's pair mask, summed
+    over the other slot)."""
+    import torch
+
+    R, S = starts.shape
+    dev = starts.device
+    idx = torch.arange(S, device=dev)
+    ends = starts + sizes - 1
+    out = torch.zeros((R, S), dtype=torch.int64, device=dev)
+    step = max(1, (1 << 24) // (S * S))
+    for a in range(0, R, step):
+        b = min(R, a + step)
+        valid = idx[None, :] < n[a:b, None]
+        pair = ((idx[None, None, :] > idx[None, :, None]) & valid[:, :, None]
+                & valid[:, None, :] & (starts[a:b, None, :] - ends[a:b, :, None] <= radius))
+        out[a:b] = pair.sum(2) + pair.sum(1)
+    return out
+
+
+def longest_window(n, starts, sizes, freqs, reps, radius):
+    """remove_hitchhiking's inputs cut to the read whose seed has the most
+    pairs within the radius (hitch_windows), and that count."""
+    win = hitch_windows(n, starts, sizes, radius)
+    r = int(win.max(dim=1).values.argmax())
+    return (n[r : r + 1].contiguous(),
+            *(t[r : r + 1].contiguous() for t in (starts, sizes, freqs, reps))), int(win.max())
+
+
+def hitch_records(seed, R, S, n, shuffle, dev):
+    """remove_hitchhiking's inputs for a hand-made chunk: R reads of n[r]
+    seeds in order (15-39 long, 0-149 apart), freqs 1-399, a third of the
+    seeds repeats; shuffle puts each read's records out of order."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(15, 40, (R, S))
+    gaps = rng.integers(0, 150, (R, S))
+    starts = np.cumsum(sizes + gaps, axis=1) - sizes - gaps
+    if shuffle:
+        for r in range(R):
+            perm = rng.permutation(S)
+            starts[r], sizes[r] = starts[r, perm], sizes[r, perm]
+    freqs = rng.integers(1, 400, (R, S))
+    reps = rng.random((R, S)) < 0.3
+    return (torch.tensor(n, dtype=torch.int32, device=dev),
+            *(torch.from_numpy(x.astype(np.int32)).to(dev) for x in (starts, sizes, freqs)),
+            torch.from_numpy(reps).to(dev))
+
+
+def hand_hitch_chunks(radius, hh, dev):
+    """remove_hitchhiking against its plain version on records the
+    automaton never emits: 64 reads whose starts are out of order (every
+    pair tested), and two reads of 18,016 slots, past the ~17,900 that a
+    block's shared memory held in the kernel's earlier design."""
+    import numpy as np
+
+    from longreadselfcorrect_tpu_torch.ops import seedscan
+
+    out = []
+    for label, (seed, R, S, n, shuffle) in (
+            ("unsorted", (2031, 64, 128, np.random.default_rng(2032).integers(0, 129, 64),
+                          True)),
+            ("wide", (2033, 2, 18016, [18016, 12000], False))):
+        ins = hitch_records(seed, R, S, n, shuffle, dev)
+        e = max_abs_err(seedscan.remove_hitchhiking(*ins, radius, hh),
+                        seedscan.remove_hitchhiking_plain(*ins, radius, hh))
+        out.append(dict(chunk=label, R=R, slots=S, seeds=int(ins[0].sum()), err=e,
+                        device_ms=round(device_ms(
+                            lambda: seedscan.remove_hitchhiking(*ins, radius, hh)), 4)))
+    return out
+
+
 def phase_kernels(corrector, sets):
     """Every kernel against its plain version on every 64-read chunk of
     each read set (name, items); times and bounds on the first set's chunk
@@ -779,9 +863,11 @@ def phase_kernels(corrector, sets):
                                                           pp.radius, hh))
             err["remove_hitchhiking"] = max(err["remove_hitchhiking"], max_abs_err(
                 calls["remove_hitchhiking"][0](), calls["remove_hitchhiking"][1]()))
-            # the chain floor: the seed whose pole walks the most steps alone
+            # the chain floors: the seed whose pole walks the most steps
+            # alone; the read whose seed has the most pairs in reach alone
             steps = best_stats["pole_steps"]
             pole = longest_pole(freq, n, starts, sizes, statics, steps)
+            window, most_pairs = longest_window(n, starts, sizes, freqs, reps, pp.radius)
             auto_chunks[-1].update(
                 best_ms=round(time_ms(calls["estimate_best"][0]), 4),
                 best_device_ms=round(device_ms(calls["estimate_best"][0]), 4),
@@ -791,6 +877,9 @@ def phase_kernels(corrector, sets):
                     *pole, pp.pb_coverage)), 4),
                 hitch_ms=round(time_ms(calls["remove_hitchhiking"][0]), 4),
                 hitch_device_ms=round(device_ms(calls["remove_hitchhiking"][0]), 4),
+                longest_window_pairs=most_pairs,
+                hitch_floor_ms=round(device_ms(lambda: seedscan.remove_hitchhiking(
+                    *window, pp.radius, hh)), 4),
                 **attr_times)
         torch.cuda.synchronize()
         if ci or name != sets[0][0]:
@@ -804,6 +893,7 @@ def phase_kernels(corrector, sets):
         rows, queries, loads = rank_traffic(ix, reads, max_k, st_c, c.clamp(min=1))
         ladder_ms = device_ms(lambda: scan.kmer_table_full(ix, reads, lens, max_k))
         nseeds = int(n.sum())
+        near_pairs = int(hitch_windows(n, starts, sizes, pp.radius).sum()) // 2
         lane_steps = auto_stats["lane_steps"]
         walk_steps = best_stats["walk_steps"]
         work = {
@@ -826,9 +916,9 @@ def phase_kernels(corrector, sets):
                               + 4 * (2 * nseeds + walk_steps)
                               + 9 * R * slots, 10 * (2 * nseeds + walk_steps)),
             # n and the valid slots' records in, keep out; ten operations
-            # per pair of valid slots
-            "remove_hitchhiking": (4 * R + 13 * nseeds + R * slots,
-                                   10 * sum(int(v) ** 2 for v in n.tolist())),
+            # per pair of valid slots within the radius (the earlier
+            # bound: per pair of valid slots, 10 * sum(n^2))
+            "remove_hitchhiking": (4 * R + 13 * nseeds + R * slots, 10 * near_pairs),
         }
         for k, (kern, plain) in calls.items():
             b_ms, b_by = bound(*work[k])
@@ -839,7 +929,8 @@ def phase_kernels(corrector, sets):
         for k, pre in (("attributes", "attr"), ("estimate_best", "best"),
                        ("remove_hitchhiking", "hitch")):
             rec[k]["device_ms"] = row[f"{pre}_device_ms"]
-        for k, pre in (("attributes", "attr"), ("estimate_best", "best")):
+        for k, pre in (("attributes", "attr"), ("estimate_best", "best"),
+                       ("remove_hitchhiking", "hitch")):
             rec[k]["chain_floor_ms"] = row[f"{pre}_floor_ms"]
         rec["_shape"] = dict(R=R, L=L, K=K, slots=slots, rows=rows, queries=queries,
                              row_loads=loads, pyramid_entries=entries,
@@ -847,9 +938,11 @@ def phase_kernels(corrector, sets):
                              from_level_1=dict(rows=rows1, queries=queries1,
                                                device_ms_without_pyramid=round(ladder_ms, 4)),
                              lane_steps=lane_steps, walk_steps=walk_steps,
-                             seeds=nseeds, chunks={n: sum(c[0] == n for c in chunks)
+                             seeds=nseeds, pairs_in_reach=near_pairs, chunks={n: sum(c[0] == n for c in chunks)
                                                    for n, _ in sets})
     shape = rec.pop("_shape")
+    hand = hand_hitch_chunks(pp.radius, hh, dev)
+    err["remove_hitchhiking"] = max([err["remove_hitchhiking"]] + [h["err"] for h in hand])
     for k in SEED_KERNELS:
         rec[k]["max_abs_err"] = err[k]
         rec[k]["equal"] = err[k] == 0
@@ -866,9 +959,12 @@ def phase_kernels(corrector, sets):
         "read's rounds, us per round, seeds, reads with full slots, inner iterations; "
         "estimate_best and remove_hitchhiking event and device ms at those slots, "
         "estimate_best's longest pole in k steps and in load rounds, its chain floor "
-        "(device ms of that pole's seed alone); attributes' event and device ms and chain "
-        "floor (device ms of the longest read alone)): "
-        + json.dumps(auto_chunks))
+        "(device ms of that pole's seed alone); remove_hitchhiking's most pairs in reach "
+        "of one seed and its chain floor (device ms of that seed's read alone); "
+        "attributes' event and device ms and chain floor (device ms of the longest read "
+        "alone)): " + json.dumps(auto_chunks))
+    say("kernels: remove_hitchhiking on hand-made chunks (reads, slots, seeds, "
+        "max_abs_err, device ms): " + json.dumps(hand))
     rec["scan_automaton"]["chunks"] = auto_chunks
     say("kernels: kmer_table_full per chunk (set, chunk, width, max_abs_err, ms, device "
         "ms; the "
@@ -1394,9 +1490,9 @@ def phase_tables(corrector, hix, items, want):
     wire = [[_sig(s) for s in seeds.search_seeds(
         seq, hix, pp, corrector.thresh, freq_table=f[:, i, : lens_all[i]],
         valid_table=v[:, i, : lens_all[i]])] for i, (_, seq) in enumerate(items[:N_HOST_SEEDS])]
-    # the pool probe
-    probe = [(scan.kmer_freq_scan(ix, reads, lens, pool),
-              scan.kmer_freq_single(ix, reads, lens, pp.scan_kmer_len))
+    # the pool probe, from the walk index's pyramid
+    probe = [(scan.kmer_freq_scan(ix, reads, lens, pool, wx),
+              scan.kmer_freq_single(ix, reads, lens, pp.scan_kmer_len, wx))
              for _, _, reads, lens in chunks]
     torch.cuda.synchronize()
     launches = {k: cuda.LAUNCHES[k] for k in TABLE_KERNELS}
@@ -1418,7 +1514,7 @@ def phase_tables(corrector, hix, items, want):
     for ci, (_, _, reads, lens) in enumerate(chunks):
         R, L = reads.shape
         calls = {
-            "kmer_freq_scan": (lambda: scan.kmer_freq_scan(ix, reads, lens, pool),
+            "kmer_freq_scan": (lambda: scan.kmer_freq_scan(ix, reads, lens, pool, wx),
                                lambda: scan.kmer_freq_scan_plain(ix, reads, lens, pool)),
             "kmer_table_wire": (lambda: scan.kmer_table_wire(ix, reads, lens, max_k),
                                 lambda: scan.kmer_table_wire_plain(ix, reads, lens, max_k)),
@@ -1427,11 +1523,15 @@ def phase_tables(corrector, hix, items, want):
                 lambda: scan.kmer_table_planes_plain(pix, wx.wcache, reads, lens, max_k, ck)),
         }
         got = {k: kern() for k, (kern, _) in calls.items()}
-        for k, (_, plain) in calls.items():
-            err[k] = max(err[k], max_abs_err(got[k], plain()))
+        want = {k: plain() for k, (_, plain) in calls.items()}
+        for k in calls:
+            err[k] = max(err[k], max_abs_err(got[k], want[k]))
+        # the probe's two calls, and the pool from level 1 (no pyramid)
         err["kmer_freq_scan"] = max(err["kmer_freq_scan"], max_abs_err(
-            probe[ci][0], got["kmer_freq_scan"]), max_abs_err(
-            probe[ci][1], scan.kmer_freq_scan_plain(ix, reads, lens, (pp.scan_kmer_len,))[0]))
+            probe[ci][0], want["kmer_freq_scan"]), max_abs_err(
+            probe[ci][1], scan.kmer_freq_scan_plain(ix, reads, lens, (pp.scan_kmer_len,))[0]),
+            max_abs_err(scan.kmer_freq_scan(ix, reads, lens, pool), want["kmer_freq_scan"]))
+        del want
         full_f, full_v = scan.kmer_table_full(ix, reads, lens, max_k)
         f16, vbits = got["kmer_table_wire"]
         pf_, pv_ = got["kmer_table_planes"]
@@ -1447,8 +1547,13 @@ def phase_tables(corrector, hix, items, want):
         if ci:
             continue
 
-        # chunk 0: times, and the least time the card needs for the work
-        rows_pool, q_pool, _ = rank_traffic(ix, reads, pool[-1])
+        # chunk 0: times, and the least time the card needs for the work;
+        # kmer_freq_scan's traffic from level 1 (its earlier route) and from
+        # each lane's pyramid level
+        rows_pool1, q_pool1, _ = rank_traffic(ix, reads, pool[-1])
+        c, st_c, entries = pyramid_start(wx, reads, pool[-1], pool)
+        rows_pool, q_pool, loads_pool = rank_traffic(ix, reads, pool[-1], st_c,
+                                                     c.clamp(min=1))
         rows_full, q_full, _ = rank_traffic(ix, reads, max_k)
         codes = scan.plane_codes(reads, ck)
         st = wx.wcache[codes.long()]
@@ -1456,10 +1561,13 @@ def phase_tables(corrector, hix, items, want):
                                         ck)
         n_codes = int(torch.unique(codes).numel())
         io = R * L + 4 * R      # reads and lens in
+        freq_from_1 = bound(io + 4 * len(pool) * R * L + rows_pool1 * 132, q_pool1 * 128)
         work = {
             # each touched index row (128 symbols + one checkpoint word)
-            # read once; ops: one byte compare per symbol of a query's row
-            "kmer_freq_scan": (io + 4 * len(pool) * R * L + rows_pool * 132, q_pool * 128),
+            # read once, each pyramid entry read (16 bytes) once; ops: one
+            # byte compare per symbol of a query's row
+            "kmer_freq_scan": (io + 4 * len(pool) * R * L + rows_pool * 132 + entries * 16,
+                               q_pool * 128),
             "kmer_table_wire": (io + 2 * K * R * L + (K + 7) // 8 * R * L + rows_full * 132,
                                 q_full * 128),
             # 68-byte plane rows, one 16-byte wcache entry per distinct code;
@@ -1471,9 +1579,19 @@ def phase_tables(corrector, hix, items, want):
             b_ms, b_by = bound(*work[k])
             rec[k] = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
                       "bound_ms": b_ms, "bound_by": b_by}
+        rec["kmer_freq_scan"].update(
+            device_ms=round(device_ms(calls["kmer_freq_scan"][0]), 4),
+            device_ms_without_pyramid=round(device_ms(
+                lambda: scan.kmer_freq_scan(ix, reads, lens, pool)), 4),
+            single_device_ms=round(device_ms(
+                lambda: scan.kmer_freq_single(ix, reads, lens, pp.scan_kmer_len, wx)), 4),
+            bound_ms_from_level_1=freq_from_1[0])
         shape = dict(R=R, L=L, K=K, ck=ck, pool=pool, chunks=len(chunks),
-                     rows=dict(pool=rows_pool, full=rows_full, planes=rows_pl),
-                     queries=dict(pool=q_pool, full=q_full, planes=q_pl),
+                     rows=dict(pool=rows_pool, pool_from_level_1=rows_pool1, full=rows_full,
+                               planes=rows_pl),
+                     queries=dict(pool=q_pool, pool_from_level_1=q_pool1, full=q_full,
+                                  planes=q_pl),
+                     pool_row_loads=loads_pool, pool_pyramid_entries=entries,
                      wcache_entries=n_codes)
         del got
     # plane_rows: one launch per strand, times and bound on the RBWT
@@ -1494,7 +1612,10 @@ def phase_tables(corrector, hix, items, want):
         f"kmer_table_full {json.dumps(cross)}; " + json.dumps([
             {"name": k, "max_abs_err": r["max_abs_err"], "ms": round(r["ms"], 4),
              "plain_ms": round(r["plain_ms"], 3), "bound_ms": round(r["bound_ms"], 5),
-             "bound_by": r["bound_by"]} for k, r in rec.items()])
+             "bound_by": r["bound_by"],
+             **{x: r[x] for x in ("device_ms", "device_ms_without_pyramid", "single_device_ms",
+                                  "bound_ms_from_level_1") if x in r}}
+            for k, r in rec.items()])
         + f" shape {json.dumps(shape)} in {time.perf_counter() - t_phase:.1f}s")
     bad = [k for k in TABLE_KERNELS if err[k] != 0]
     check(not bad, f"tables: {bad} differ from their plain versions")

@@ -27,17 +27,19 @@
 // and a fused copy would double the index's device memory.
 // Row 0 is the JAX table's constant level 0 (freq -1, valid false).
 //
-// kmer_table_full, the main path's table, starts each lane from the
-// interval-table pyramid of the walk index (ops/walk.py get_tables: the
-// interval of every j-mer for j = 1..ck, ck = 12 at the bench scale):
-// where reads[pos : pos+c] is ACGT, level j <= c is one independent 16-byte
-// load keyed by the j-mer's 2-bit code, so the ladder's first c - 1
-// dependent LF steps (four rank queries each) are gone.  From level c on
-// the lane runs the ladder, both strands' steps in one round of loads, one
-// index row for both ends where they share a block (rank.cuh
-// update_interval_shared).  Those levels, where a surviving lane's rows are
-// its own, take most of the time (PERF.md).  Without a pyramid
-// (ck = 0) every lane runs the ladder from level 1.
+// kmer_table_full, the main path's table, and kmer_freq_scan start each
+// lane from the interval-table pyramid of the walk index (ops/walk.py
+// get_tables: the interval of every j-mer for j = 1..ck, ck = 12 at the
+// bench scale): where reads[pos : pos+c] is ACGT, level j <= c is one
+// independent 16-byte load keyed by the j-mer's 2-bit code, so the
+// ladder's first c - 1 dependent LF steps (four rank queries each) are
+// gone.  From level c on the lane runs the ladder, both strands' steps in
+// one round of loads, one index row for both ends where they share a block
+// (rank.cuh update_interval_shared).  Those levels, where a surviving
+// lane's rows are its own, take most of the time (PERF.md).  kmer_freq_scan
+// loads only its pool's levels up to c, steps no level past the pool's top
+// or the read's end, and runs ladder.cuh's step.  Without a pyramid (ck =
+// 0) every lane runs the ladder from level 1.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -93,9 +95,46 @@ __device__ __forceinline__ const int4* level_row(const Pyramid& pyr, int j, unsi
   return j < pyr.ck ? pyr.lower + (((1u << (2 * j)) - 4u) / 3u) + code : pyr.top + code;
 }
 
-__device__ __forceinline__ void step_shared(const lrsc::BlockRank& fm, int sym, int& lo, int& hi,
-                                            bool live) {
-  lrsc::update_interval_shared(fm.blocks, fm.ckpt, fm.C, fm.nb, sym, lo, hi, live);
+// The lane's clean prefix: its leading symbols in 1..4 inside the row, at
+// most cmax; code: their 2-bit code.
+__device__ __forceinline__ int clean_prefix(const int8_t* __restrict__ row, int p, int L,
+                                            int cmax, unsigned& code) {
+  int c = 0;
+  code = 0;
+  for (; c < cmax && p + c < L; ++c) {
+    const int s = row[p + c];
+    if (s < 1 || s > 4) break;
+    code = (code << 2) | (unsigned)(s - 1);
+  }
+  return c;
+}
+
+// The interval of the lane's first j symbols, j <= c (its clean prefix of
+// that code): one pyramid load.
+__device__ __forceinline__ lrsc::BiInterval pyramid_level(const Pyramid& pyr, int j,
+                                                          unsigned code, int c) {
+  const int4 e = __ldg(level_row(pyr, j, code >> (2 * (c - j))));
+  return lrsc::BiInterval{e.x, e.y, e.z, e.w};
+}
+
+// The ladder's step from level j to j + 1 (ladder.cuh's rule: a symbol of
+// rank 0 extends, PAD or the row's end freezes the state, an empty strand
+// is not stepped); a lane with a strand to step steps both in one round of
+// loads, one index row for both ends of an interval where they share a
+// block, and a lane with none skips the step.
+__device__ __forceinline__ void step_level(const lrsc::BlockRank& fwd,
+                                           const lrsc::BlockRank& rev,
+                                           const int8_t* __restrict__ row, int p, int L, int j,
+                                           lrsc::BiInterval& st) {
+  const int nxt = p + j < L ? (int)row[p + j] : lrsc::kPadRank;
+  const bool live = nxt < lrsc::kPadRank;
+  const bool fv = live && st.f_lo <= st.f_hi, rv = live && st.r_lo <= st.r_hi;
+  if (fv || rv) {
+    const int s = min(max(nxt, 0), 4);
+    lrsc::update_interval_shared(fwd.blocks, fwd.ckpt, fwd.C, fwd.nb, s, st.f_lo, st.f_hi, fv);
+    lrsc::update_interval_shared(rev.blocks, rev.ckpt, rev.C, rev.nb, lrsc::comp(s), st.r_lo,
+                                 st.r_hi, rv);
+  }
 }
 
 __global__ void kmer_table_full_kernel(lrsc::BlockRank fwd, lrsc::BlockRank rev, Pyramid pyr,
@@ -114,39 +153,20 @@ __global__ void kmer_table_full_kernel(lrsc::BlockRank fwd, lrsc::BlockRank rev,
   freq[ln.id] = -1;
   valid[ln.id] = false;
   if (max_k < 1) return;
-  // c: the lane's clean prefix, its leading symbols in 1..4 inside the row
-  // (at most ck and max_k); code: their 2-bit code
-  const int cmax = min(pyr.ck, max_k);
-  int c = 0;
-  unsigned code = 0;
-  for (; c < cmax && ln.p + c < L; ++c) {
-    const int s = ln.row[ln.p + c];
-    if (s < 1 || s > 4) break;
-    code = (code << 2) | (unsigned)(s - 1);
-  }
+  // c: the lane's clean prefix, at most ck and max_k
+  unsigned code;
+  const int c = clean_prefix(ln.row, ln.p, L, min(pyr.ck, max_k), code);
   // levels 1..c: one independent load each
   lrsc::BiInterval st = ln.st;  // level 1 by init_bi when c = 0
 #pragma unroll 4
   for (int j = 1; j <= c; ++j) {
-    const int4 e = __ldg(level_row(pyr, j, code >> (2 * (c - j))));
-    st = lrsc::BiInterval{e.x, e.y, e.z, e.w};
+    st = pyramid_level(pyr, j, code, c);
     emit(j, st);
   }
-  int j = max(c, 1);
   if (c == 0) emit(1, st);
-  // levels past c: the ladder of ladder.cuh (a symbol of rank 0 extends,
-  // PAD or the row's end freezes the state, an empty strand is not
-  // stepped); a lane with a strand to step steps both in one round of
-  // loads, a lane with none skips the step
-  for (; j < max_k; ++j) {
-    const int nxt = ln.p + j < L ? (int)ln.row[ln.p + j] : lrsc::kPadRank;
-    const bool live = nxt < lrsc::kPadRank;
-    const bool fv = live && st.f_lo <= st.f_hi, rv = live && st.r_lo <= st.r_hi;
-    if (fv || rv) {
-      const int s = min(max(nxt, 0), 4);
-      step_shared(fwd, s, st.f_lo, st.f_hi, fv);
-      step_shared(rev, lrsc::comp(s), st.r_lo, st.r_hi, rv);
-    }
+  // levels past c: the ladder
+  for (int j = max(c, 1); j < max_k; ++j) {
+    step_level(fwd, rev, ln.row, ln.p, L, j, st);
     emit(j + 1, st);
   }
 }
@@ -173,21 +193,43 @@ __global__ void kmer_table_wire_kernel(lrsc::BlockRank fwd, lrsc::BlockRank rev,
                });
 }
 
-__global__ void kmer_freq_scan_kernel(lrsc::BlockRank fwd, lrsc::BlockRank rev,
+// kmer_freq_scan: the table's rows at the pool's sizes only.  A lane stops
+// at min(the pool's top, len - p), past which every entry is fake (-1,
+// no step); the entries at most its clean prefix c (at most ck) are one
+// independent pyramid load each, and the ladder of ladder.cuh runs from
+// level c (one more load, or init_bi when c = 0) to the last entry before
+// the stop.  That ladder steps strand by strand, each end of an interval
+// from its own row: 64 registers and no stack on an H100, against 114 and
+// a 336-byte frame with kmer_table_full's step (one round of loads for
+// both strands), which ran 7% slower from the pyramid and 28% from level
+// 1 (PERF.md).  ck = 0: the ladder from level 1 for every lane.
+__global__ void kmer_freq_scan_kernel(lrsc::BlockRank fwd, lrsc::BlockRank rev, Pyramid pyr,
                                       const int8_t* __restrict__ reads,
                                       const int* __restrict__ lens, int R, int L,
                                       Pool pool, int* __restrict__ freq) {
-  Lane ln;
-  if (!lane_of(fwd, rev, reads, lens, R, L, ln)) return;
+  const size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= (size_t)R * L) return;
+  const int r = (int)(lane / L), p = (int)(lane - (size_t)r * L);
+  const int8_t* row = reads + (size_t)r * L;
   const size_t plane = (size_t)R * L;
+  const int len = __ldg(lens + r);
+  const int stop = min(pool.k[pool.n - 1], len - p);
+  unsigned code;
+  const int c = clean_prefix(row, p, L, min(pyr.ck, stop), code);
   int i = 0;  // the next pool entry
-  lrsc::ladder(fwd, rev, ln.row, ln.p, L, ln.len, 1, pool.k[pool.n - 1], ln.st,
-               [&](int j, bool fake, const lrsc::BiInterval& s) {
-                 if (j == pool.k[i]) {
-                   freq[i * plane + ln.id] = fake ? -1 : s.size();
-                   ++i;
-                 }
-               });
+  for (; i < pool.n && pool.k[i] <= c; ++i)
+    freq[i * plane + lane] = pyramid_level(pyr, pool.k[i], code, c).size();
+  int top = i;  // one past the last entry at most stop
+  while (top < pool.n && pool.k[top] <= stop) ++top;
+  if (top > i) {
+    const lrsc::BiInterval st = c > 0 ? pyramid_level(pyr, c, code, c)
+                                      : lrsc::init_bi(fwd, rev, min(max((int)row[p], 0), 4));
+    lrsc::ladder(fwd, rev, row, p, L, len, max(c, 1), pool.k[top - 1], st,
+                 [&](int j, bool, const lrsc::BiInterval& s) {
+                   if (j == pool.k[i]) freq[i++ * plane + lane] = s.size();
+                 });
+  }
+  for (; i < pool.n; ++i) freq[i * plane + lane] = -1;
 }
 
 unsigned grid(int R, int L) {
@@ -233,19 +275,25 @@ extern "C" int lrsc_kmer_table_wire(const int8_t* f_blocks, const int* f_ckpt,
 }
 
 // pool: n_pool strictly ascending sizes >= 1, in host memory; n_pool <= 16.
+// pyr_lower, pyr_top, ck: as for lrsc_kmer_table_full.
 extern "C" int lrsc_kmer_freq_scan(const int8_t* f_blocks, const int* f_ckpt,
                                    const int* f_C, int f_nb, const int8_t* r_blocks,
                                    const int* r_ckpt, const int* r_C, int r_nb,
+                                   const int* pyr_lower, const int* pyr_top, int ck,
                                    const int8_t* reads, const int* lens, int R, int L,
                                    const int* pool, int n_pool, int* freq,
                                    void* stream) {
-  if (n_pool < 1 || n_pool > kMaxPool) return (int)cudaErrorInvalidValue;
+  if (n_pool < 1 || n_pool > kMaxPool || ck < 0 || ck > kMaxPyramid)
+    return (int)cudaErrorInvalidValue;
   Pool p{n_pool, {}};
   for (int i = 0; i < n_pool; ++i) p.k[i] = pool[i];
   if (grid(R, L) > 0) {
     kmer_freq_scan_kernel<<<grid(R, L), kThreads, 0, (cudaStream_t)stream>>>(
         lrsc::BlockRank{f_blocks, f_ckpt, f_C, f_nb},
-        lrsc::BlockRank{r_blocks, r_ckpt, r_C, r_nb}, reads, lens, R, L, p, freq);
+        lrsc::BlockRank{r_blocks, r_ckpt, r_C, r_nb},
+        Pyramid{reinterpret_cast<const int4*>(pyr_lower),
+                reinterpret_cast<const int4*>(pyr_top), ck},
+        reads, lens, R, L, p, freq);
   }
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // The per-lane bi-interval ladder of the k-mer tables, shared by the kernels
-// of kmer_table.cu (kmer_table_full runs its own copy of the step loop,
-// started from the interval-table pyramid) and planes.cu.
+// of kmer_table.cu (kmer_freq_scan runs it from the interval-table
+// pyramid's level; kmer_table_full runs its own step loop, both strands in
+// one round of loads) and planes.cu.
 //
 // Replaces the level loop that the JAX package's ops/scan.py writes out in
 // each of kmer_freq_scan (:49-61), kmer_table_full (:124-139) and

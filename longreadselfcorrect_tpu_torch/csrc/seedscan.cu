@@ -570,52 +570,105 @@ __global__ void __launch_bounds__(kBestThreads) estimate_best_kernel(
 // ---------------------------------------------------------------------------
 // _remove_hitchhiking (seedscan.py:303): keep mask over the seed slots.
 //
-// Bound: the n x n pair test per read (n its seeds), from shared memory.
-// Design: one block per read, the read's smax slots in dynamic shared
-// memory; each thread takes slots t in turn and tests t as the subject of
-// every earlier repeat query and as the query of every later repeat
-// subject (axes of the JAX [R, SMAX, SMAX] mask).  A pair needs both
-// slots valid, so the loops stop at n.
+// Bound: bytes, each valid slot's records read once and its keep flag
+// written once; only the pairs within the radius can mark a slot.  Design:
+// a warp per 32 slots of a read (a grid of R x ceil(smax / 32) warps, a
+// warp past its read's n only clears its flags), each lane deciding its
+// own slot from the records in device memory (through L1): no shared
+// array of the read's slots, so no read length caps the kernel, and no
+// atomics.  The automaton emits a read's seeds in order and without
+// overlap, so their starts and ends ascend; then the subjects in reach of
+// query q are the run q+1.. up to the first start past end[q] + radius,
+// and the queries in reach of subject t the run down to the first end
+// before start[t] - radius: a few slots each at the main path's radius,
+// where the JAX mask tests all n^2 pairs.  Each warp checks that order
+// over its read's n slots (32 slots a load round, one vote of the warp:
+// starts and ends non-decreasing and within +-2^30, so that no difference
+// wraps); the walks stop at the first slot out of reach only in such a
+// read, and in any other every lane tests all its pairs, as the mask does.
+// The chain is the launch, then n beside the lane's own record, the order
+// check's rounds, and the longer of the two walks, which step side by side
+// with each step's records in one round of loads (L1 hits mostly).
 // ---------------------------------------------------------------------------
 
-constexpr int kHitchThreads = 128;
+constexpr int kHitchWarps = 4;        // warps a block, each on 32 slots of one read
+constexpr int kHitchReach = 1 << 30;  // records within +-kHitchReach: no wrapping gap
 
-__global__ void __launch_bounds__(kHitchThreads) remove_hitchhiking_kernel(
+// a - b with int32 wrap-around, as the JAX / torch int32 arithmetic
+__device__ __forceinline__ int wrap_sub(int a, int b) { return (int)((unsigned)a - (unsigned)b); }
+
+// start + size - 1 of slot j, with int32 wrap-around
+__device__ __forceinline__ int seed_end(const int* __restrict__ starts,
+                                        const int* __restrict__ sizes, size_t j) {
+  return (int)((unsigned)__ldg(starts + j) + (unsigned)__ldg(sizes + j) - 1u);
+}
+
+__device__ __forceinline__ bool out_of_reach(int x) {
+  return x < -kHitchReach || x >= kHitchReach;
+}
+
+// Whether slots 0..nr-1 (from o; nr >= 1) have non-decreasing starts and
+// ends, all within +-kHitchReach; warp-uniform.  Each lane compares a slot
+// with the one before it (slot 0 with itself; lanes past nr take slot
+// nr - 1), so every load is unconditional and a round's loads, four rounds
+// of them, are in flight together.
+__device__ __forceinline__ bool hitch_in_order(const int* __restrict__ starts,
+                                               const int* __restrict__ sizes, size_t o,
+                                               int nr, int lane) {
+  bool bad = false;
+#pragma unroll 4
+  for (int b = 0; b < nr; b += 32) {
+    const int i = min(b + lane, nr - 1), h = max(i - 1, 0);
+    const int st = __ldg(starts + o + i), en = seed_end(starts, sizes, o + i);
+    const int ps = __ldg(starts + o + h), pe = seed_end(starts, sizes, o + h);
+    bad |= out_of_reach(st) | out_of_reach(en) | (st < ps) | (en < pe);
+  }
+  return !__any_sync(kFullMask, bad);
+}
+
+__global__ void __launch_bounds__(kHitchWarps * 32) remove_hitchhiking_kernel(
     const int* __restrict__ n, const int* __restrict__ starts,
     const int* __restrict__ sizes, const int* __restrict__ freqs,
-    const bool* __restrict__ reps, int smax, int radius, float hh, float inv_hh,
+    const bool* __restrict__ reps, int R, int smax, int radius, float hh, float inv_hh,
     bool* __restrict__ keep) {
-  extern __shared__ int4 hitch_smem[];
-  int* s_start = reinterpret_cast<int*>(hitch_smem);  // [smax] each
-  int* s_end = s_start + smax;
-  int* s_freq = s_end + smax;
-  bool* s_rep = reinterpret_cast<bool*>(s_freq + smax);
-  const int r = blockIdx.x;
-  const int nr = min(n[r], smax);
+  const int tiles = (smax + 31) / 32;
+  const size_t w = (size_t)blockIdx.x * kHitchWarps + threadIdx.x / 32;
+  if (w >= (size_t)R * tiles) return;  // a whole warp
+  const int r = (int)(w / tiles), lane = threadIdx.x & 31;
+  const int t0 = (int)(w - (size_t)r * tiles) * 32, t = t0 + lane;
   const size_t o = (size_t)r * smax;
-  for (int t = threadIdx.x; t < nr; t += blockDim.x) {
-    s_start[t] = starts[o + t];
-    s_end[t] = starts[o + t] + sizes[o + t] - 1;
-    s_freq[t] = freqs[o + t];
-    s_rep[t] = reps[o + t];
+  // the lane's own record, loaded beside n
+  const size_t j = o + min(t, smax - 1);
+  const int st = __ldg(starts + j), en = seed_end(starts, sizes, j);
+  const float ft = (float)__ldg(freqs + j);
+  const int nr = min(__ldg(n + r), smax);
+  if (t0 >= nr) {  // every slot of the warp is empty
+    if (t < smax) keep[o + t] = false;
+    return;
   }
-  __syncthreads();
-  for (int t = threadIdx.x; t < smax; t += blockDim.x) {
-    bool hitch = false;
-    if (t < nr) {
-      for (int q = 0; q < t; ++q) {  // t as subject: query q repeat and fd < hh
-        const bool pair = s_start[t] - s_end[q] <= radius;
-        const float fd = (float)s_freq[t] / (float)s_freq[q];
-        hitch |= pair && s_rep[q] && (fd < hh);
-      }
-      for (int s = t + 1; s < nr; ++s) {  // t as query: subject s repeat and fd > 1/hh
-        const bool pair = s_start[s] - s_end[t] <= radius;
-        const float fd = (float)s_freq[s] / (float)s_freq[t];
-        hitch |= pair && s_rep[s] && (fd > inv_hh);
-      }
+  const bool ordered = hitch_in_order(starts, sizes, o, nr, lane);
+  // the two walks side by side, step d testing query t - d (t the
+  // subject: q a repeat and f[t] / f[q] < hh) and subject t + d (t the
+  // query: s a repeat and f[s] / f[t] > 1 / hh), both steps' records in
+  // one round of loads (indices clamped into the read); in order, a walk
+  // ends at its first pair out of reach
+  bool hitch = false, down = t < nr, up = t < nr;
+  for (int d = 1; (down || up) && !hitch; ++d) {
+    const int q = max(t - d, 0), s = min(t + d, nr - 1);
+    down &= t - d >= 0;
+    up &= t + d < nr;
+    const int eq = seed_end(starts, sizes, o + q), ss = __ldg(starts + o + s);
+    const bool rq = reps[o + q], rs = reps[o + s];
+    const float fq = (float)__ldg(freqs + o + q), fs = (float)__ldg(freqs + o + s);
+    const bool nq = down && wrap_sub(st, eq) <= radius;
+    const bool ns = up && wrap_sub(ss, en) <= radius;
+    hitch = (nq & rq & (ft / fq < hh)) | (ns & rs & (fs / ft > inv_hh));
+    if (ordered) {
+      down = nq;
+      up = ns;
     }
-    keep[o + t] = t < nr && !hitch;
   }
+  if (t < smax) keep[o + t] = t < nr && !hitch;
 }
 
 }  // namespace
@@ -663,22 +716,16 @@ extern "C" int lrsc_estimate_best(const int* freq, const int* n, const int* star
   return (int)cudaGetLastError();
 }
 
-// the read's slots live in shared memory: past 48 KB (3,780 slots) the
-// launch asks for the opt-in size, and fails past the card's limit
 extern "C" int lrsc_remove_hitchhiking(const int* n, const int* starts, const int* sizes,
                                        const int* freqs, const bool* reps, int R, int smax,
                                        int radius, float hh, float inv_hh, bool* keep,
                                        void* stream) {
   if (smax < 1) return (int)cudaErrorInvalidValue;
-  const size_t shmem = (size_t)smax * (3 * sizeof(int) + sizeof(bool));
-  if (shmem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        remove_hitchhiking_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (R > 0) {
-    remove_hitchhiking_kernel<<<R, kHitchThreads, shmem, (cudaStream_t)stream>>>(
-        n, starts, sizes, freqs, reps, smax, radius, hh, inv_hh, keep);
+  const size_t warps = (size_t)R * ((smax + 31) / 32);
+  if (warps > 0) {
+    remove_hitchhiking_kernel<<<(unsigned)((warps + kHitchWarps - 1) / kHitchWarps),
+                                kHitchWarps * 32, 0, (cudaStream_t)stream>>>(
+        n, starts, sizes, freqs, reps, R, smax, radius, hh, inv_hh, keep);
   }
   return (int)cudaGetLastError();
 }

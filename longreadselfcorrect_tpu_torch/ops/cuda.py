@@ -139,9 +139,9 @@ _SIGNATURES = {
                              _I, _I, _P, _P, _P],
     "lrsc_kmer_table_wire": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                              _P, _P, _P],
-    # the pool is a host int array
-    "lrsc_kmer_freq_scan": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _I,
-                            _P, _P],
+    # ... the pyramid as above; the pool is a host int array
+    "lrsc_kmer_freq_scan": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
+                            _P, _I, _P, _P],
     "lrsc_plane_rows": [_P, _P, _I, _P, _P],
     "lrsc_kmer_table_planes": [_P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
                                _P, _P, _P],

@@ -16,7 +16,8 @@ lockstep transcript of the JAX function, for CPU tensors:
 * ``kmer_table_wire``   the same table as int16 freq and valid packed 8
   k-levels per byte (csrc/kmer_table.cu); ``unpack_valid_bits`` undoes
   the packing on the host;
-* ``kmer_freq_scan``    freq for each k of a pool (csrc/kmer_table.cu);
+* ``kmer_freq_scan``    freq for each k of a pool (csrc/kmer_table.cu), from
+  the pyramid as ``kmer_table_full`` where it is given;
 * ``build_plane_rows``  the index as bit-plane rows (csrc/planes.cu);
 * ``kmer_table_planes`` ``kmer_table_full`` on the plane rows, its chain
   seeded at k = ck from the walk's ck-mer interval table (csrc/planes.cu).
@@ -231,32 +232,44 @@ def kmer_freq_scan_plain(ix: IndexSet, reads: torch.Tensor, lengths: torch.Tenso
 
 
 def kmer_freq_scan(ix: IndexSet, reads: torch.Tensor, lengths: torch.Tensor,
-                   pool: tuple[int, ...]):
+                   pool: tuple[int, ...], levels=None):
     """Bi-strand k-mer frequencies at every position for every k in pool.
 
     reads int8 [R, L] rank symbols padded with PAD_RANK, lengths int32 [R],
     pool ascending k sizes.  Returns int32 [len(pool), R, L]; -1 where the
-    k-mer is fake (pos + k > read length).
+    k-mer is fake (pos + k > read length).  levels: the walk index over ix
+    (ops/walk.WalkIndex), from whose pyramid the kernel reads each lane's
+    pool entries and start up to its first non-ACGT symbol or ck; None runs
+    every lane's ladder from level 1.  The table is the same either way.
     """
     if not reads.is_cuda:
         return kmer_freq_scan_plain(ix, reads, lengths, pool)
+    freq = torch.empty((len(pool), *reads.shape), dtype=I32, device=reads.device)
+    cuda.launch("kmer_freq_scan", "lrsc_kmer_freq_scan",
+                *kmer_freq_scan_args(ix, reads, lengths, pool, levels, freq))
+    return freq
+
+
+def kmer_freq_scan_args(ix: IndexSet, reads, lengths, pool, levels, freq,
+                        on_card: bool = True) -> list:
+    """The arguments of lrsc_kmer_freq_scan but the stream (on_card=False
+    takes CPU tensors: the C entry compiled for the host, in the tests)."""
     name = "kmer_freq_scan"
     pool = tuple(int(k) for k in pool)
     if not (0 < len(pool) <= MAX_POOL and pool[0] >= 1
             and all(a < b for a, b in zip(pool, pool[1:]))):
         raise ValueError(f"{name}: the kernel takes 1-{MAX_POOL} strictly ascending "
                          f"sizes >= 1, got {pool}")
-    R, L = reads.shape
-    args = _index_args(name, ix, reads) + _read_args(name, reads, lengths)
-    freq = torch.empty((len(pool), R, L), dtype=I32, device=reads.device)
-    cuda.launch(name, "lrsc_kmer_freq_scan", *args, cuda.int_array(pool), len(pool),
-                freq.data_ptr())
-    return freq
+    out = cuda.check(name, freq, I32, (len(pool), *reads.shape), on_card=on_card)
+    return (_index_args(name, ix, reads, on_card) + _pyramid_args(name, levels, reads, on_card)
+            + _read_args(name, reads, lengths, on_card)
+            + [cuda.int_array(pool), len(pool), out])
 
 
-def kmer_freq_single(ix: IndexSet, reads: torch.Tensor, lengths: torch.Tensor, k: int):
+def kmer_freq_single(ix: IndexSet, reads: torch.Tensor, lengths: torch.Tensor, k: int,
+                     levels=None):
     """Frequencies for one k, [R, L]."""
-    return kmer_freq_scan(ix, reads, lengths, (k,))[0]
+    return kmer_freq_scan(ix, reads, lengths, (k,), levels)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ SHIM = r"""
 #include <cstring>
 #include <functional>
 #include <thread>
+#include <type_traits>
 #include <vector>
 
 #define __global__
@@ -232,8 +233,15 @@ inline int atomicMax(int* p, int v) {
 
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+// CUDA's __ldg overloads: arithmetic types but bool, and the vector types
 template <class T>
-inline T __ldg(const T* p) { return *p; }
+inline T __ldg(const T* p) {
+  static_assert((std::is_arithmetic_v<T> && !std::is_same_v<T, bool>) ||
+                    std::is_same_v<T, int4> || std::is_same_v<T, uint4> ||
+                    std::is_same_v<T, float4>,
+                "CUDA has no __ldg for this type");
+  return *p;
+}
 inline unsigned __vcmpeq4(unsigned a, unsigned b) {
   unsigned r = 0;
   for (int i = 0; i < 4; ++i)

@@ -27,7 +27,11 @@ from the walk index's interval-table pyramid (ck 8 and 10, and without
 one) on reads with N inside the first ck symbols of some lanes, reads
 shorter than ck, lanes at and past a read's end and a read as long as
 the row, max_k below, at and above ck; also held against the JAX
-kmer_table_full.
+kmer_table_full.  kmer_freq_scan runs on the same reads from the pyramid
+and without one, at pools below, at and above ck.  remove_hitchhiking
+also runs on hand-made records: out of order (every pair tested), long
+windows, zero freqs, ratios at the bounds, n from -3 to past the slots,
+3,808 slots, and gaps that wrap in int32.
 """
 import numpy as np
 import pytest
@@ -169,6 +173,135 @@ def test_remove_hitchhiking_kernel_past_128_slots(seedscan_lib):
     assert torch.equal(keep, want)
     dropped = (~want[0, :300]).nonzero()[:, 0]
     assert int(dropped.max()) > 128 and (~want[2, 128:479]).any()
+
+
+def _hitch_records(seed, R, S, n, size=(15, 40), gap=(0, 150), freq=(1, 400), p_rep=0.3):
+    """remove_hitchhiking's inputs: seeds in order without overlap (sizes
+    and the gaps between them drawn from the ranges), freqs, repeat flags,
+    all slots filled (those past n too)."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(*size, (R, S)).astype(np.int64)
+    gaps = rng.integers(*gap, (R, S))
+    starts = np.cumsum(sizes + gaps, axis=1) - sizes - gaps
+    freqs = rng.integers(*freq, (R, S))
+    reps = rng.random((R, S)) < p_rep
+    return [np.asarray(n, np.int32), starts.astype(np.int32), sizes.astype(np.int32),
+            freqs.astype(np.int32), reps]
+
+
+def _hitch_unsorted():
+    """Each read's records shuffled: starts out of order."""
+    n, starts, sizes, freqs, reps = _hitch_records(81, 2, 96, [96, 50])
+    perm = np.random.default_rng(82).permutation(96)
+    return [n, starts[:, perm], sizes[:, perm], freqs, reps]
+
+
+def _hitch_overlapping():
+    """Starts ascend but seeds overlap: a long seed holds the next ones,
+    whose ends fall before its own."""
+    n, starts, sizes, freqs, reps = _hitch_records(83, 2, 64, [64, 40])
+    sizes[:, ::7] += 600
+    return [n, starts, sizes, freqs, reps]
+
+
+def _hitch_long_window():
+    """In order, but every seed reaches past the next 60 starts: each
+    slot's window holds dozens of subjects."""
+    n, starts, sizes, freqs, reps = _hitch_records(84, 2, 128, [128, 90], size=(1, 2),
+                                                   gap=(5, 15))
+    sizes[:] = 1000
+    return [n, starts, sizes, freqs, reps]
+
+
+def _hitch_freq_zero():
+    """Half the freqs 0 (x / 0 is inf, 0 / 0 NaN), most seeds repeats."""
+    n, starts, sizes, freqs, reps = _hitch_records(85, 3, 64, [64, 64, 30], gap=(0, 40),
+                                                   freq=(0, 3), p_rep=0.8)
+    return [n, starts, sizes, freqs, reps]
+
+
+def _hitch_ratio_ties():
+    """Freqs of 3, 5, 6 and 10: ratios equal to hh (0.6) and to 1 / hh,
+    where < and > must not take the bound."""
+    n, starts, sizes, freqs, reps = _hitch_records(89, 2, 96, [96, 80], gap=(0, 60),
+                                                   p_rep=0.5)
+    freqs = np.random.default_rng(90).choice([3, 5, 6, 10], size=freqs.shape).astype(np.int32)
+    return [n, starts, sizes, freqs, reps]
+
+
+def _hitch_empty_and_full():
+    """n = 0, n = S, n past S and n < 0."""
+    return _hitch_records(86, 4, 64, [0, 64, 100, -3], gap=(0, 60))
+
+
+def _hitch_wide():
+    """More slots than the 3,780 a 48 KB shared array of the reads' records
+    held, the first read all filled."""
+    return _hitch_records(87, 2, 3808, [3808, 2500], gap=(0, 120))
+
+
+def _hitch_wrapping():
+    """Starts in order across the whole int32 range: a gap from the first
+    seeds' ends to the last seeds' starts wraps to a small int32, so the
+    pairs within the radius are no run of slots."""
+    n, starts, sizes, freqs, reps = _hitch_records(88, 1, 64, [64], p_rep=0.9)
+    starts[0] = np.linspace(-(2 ** 31) + 10, 2 ** 31 - 200, 64).astype(np.int64)
+    sizes[0] = 20
+    return [n, starts, sizes, freqs, reps]
+
+
+# case -> remove_hitchhiking's inputs (n, starts, sizes, freqs, reps)
+HITCH_CASES = {
+    "unsorted": _hitch_unsorted,
+    "overlapping": _hitch_overlapping,
+    "long-window": _hitch_long_window,
+    "freq-zero": _hitch_freq_zero,
+    "ratio-ties": _hitch_ratio_ties,
+    "empty-and-full": _hitch_empty_and_full,
+    "wide": _hitch_wide,
+    "wrapping": _hitch_wrapping,
+}
+
+
+@pytest.mark.parametrize("case", sorted(HITCH_CASES))
+def test_remove_hitchhiking_kernel_cases(seedscan_lib, case):
+    """remove_hitchhiking on hand-made records: reads whose starts or ends
+    do not ascend, or whose gaps wrap (all pairs tested), long windows,
+    zero freqs, ratios at the bounds, n at and past both ends of the slots,
+    and more slots than one block's shared memory held."""
+    ins = [torch.from_numpy(np.ascontiguousarray(x)) for x in HITCH_CASES[case]()]
+    n, starts, sizes, freqs, reps = ins
+    R, S = starts.shape
+    radius, hh_ratio = 100, 0.6
+    keep = torch.ones((R, S), dtype=torch.bool)
+    hh, inv_hh = seedscan.hh_constants(hh_ratio)
+    assert seedscan_lib.lrsc_remove_hitchhiking(
+        n.data_ptr(), starts.data_ptr(), sizes.data_ptr(), freqs.data_ptr(),
+        reps.data_ptr(), R, S, radius, hh, inv_hh, keep.data_ptr(), None) == 0
+    want = seedscan.remove_hitchhiking_plain(*ins, radius, hh_ratio)
+    assert torch.equal(keep, want)
+    # each case reaches what it is for
+    valid = torch.arange(S)[None, :] < n[:, None]
+    assert (valid & ~want).any() or case == "empty-and-full"
+    ends = starts + sizes - 1
+    if case == "unsorted":
+        assert (starts[:, 1:] < starts[:, :-1]).any()
+    if case == "overlapping":
+        assert (ends[:, 1:] < ends[:, :-1]).any() and (starts.diff(dim=1) >= 0).all()
+    if case == "long-window":
+        assert int((starts[0, :, None] - ends[0, None, :] <= radius).sum(1).min()) > 60
+    if case == "freq-zero":
+        assert (valid & (freqs == 0) & ~want).any() and (valid & (freqs == 0) & want).any()
+    if case == "ratio-ties":
+        fd = (freqs[:, None, :].float() / freqs[:, :, None].float())
+        near = (starts[:, None, :] - ends[:, :, None] <= radius) & valid[:, :, None] & (
+            torch.arange(S)[None, None, :] > torch.arange(S)[None, :, None])
+        assert (near & (fd == hh)).any() and (near & (fd == inv_hh)).any()
+    if case == "empty-and-full":
+        assert not want[0].any() and not want[3].any() and want[1].any() and want[2].any()
+    if case == "wrapping":
+        far = (starts[0, None, -5:] - ends[0, :5, None] <= radius)
+        assert far.any() and bool((~want[0, :5]).any())
 
 
 def _attr_rows(seed, seqs, L, freq_of, lens=None):
@@ -601,7 +734,7 @@ def test_banded_fill_kernel_refuses_wide_bands(msa_lib):
 @pytest.fixture(scope="module")
 def kmer_lib(tmp_path_factory):
     return build_host("kmer_table.cu", tmp_path_factory.mktemp("kmer_shim"),
-                      ("lrsc_kmer_table_full",))
+                      ("lrsc_kmer_table_full", "lrsc_kmer_freq_scan"))
 
 
 def n_reads(genome, L):
@@ -661,3 +794,34 @@ def test_kmer_table_full_kernel_matches_plain(kmer_lib, pyramid_pair, ck, max_k)
     assert (want_f[max_k, 0, L - max_k + 1 :] == -1).all()
     for r, n in enumerate(lens.tolist()):   # a lane at or past len: fake at every level
         assert (want_f[1:, r, n:] == -1).all() and not want_v[:, r, n:].any()
+
+
+@pytest.mark.parametrize("ck,pool", [
+    (0, (5, 9, 19)), (0, (19,)), (8, (5, 9, 19)), (8, (5, 9, 15, 19)), (8, (19,)),
+    (8, (3,)), (8, (1, 2, 8)), (10, (5, 9, 19)), (10, (10,)), (10, (4, 10, 11, 24)),
+    (10, tuple(range(1, 17)))])
+def test_kmer_freq_scan_kernel_matches_plain(kmer_lib, pyramid_pair, ck, pool):
+    """kmer_freq_scan from the pyramid (ck 8, 10) and without (ck 0), pools
+    below, at and above ck, on n_reads' reads (N inside the first ck
+    symbols, reads shorter than ck, lanes at and past a read's end)."""
+    c = pyramid_pair
+    reads, lens = c["reads"], c["lens"]
+    R, L = reads.shape
+    freq = torch.full((len(pool), R, L), 7, dtype=torch.int32)
+    levels = c["wx"][ck] if ck else None
+    assert kmer_lib.lrsc_kmer_freq_scan(*scan.kmer_freq_scan_args(
+        c["td"], reads, lens, pool, levels, freq, on_card=False), None) == 0
+    want = scan.kmer_freq_scan_plain(c["td"], reads, lens, pool)
+    assert torch.equal(freq, want)
+    if pool == (5, 9, 19):
+        from longreadselfcorrect_tpu.ops import scan as jscan
+        import jax.numpy as jnp
+
+        jf = jscan.kmer_freq_scan(c["jd"], jnp.asarray(reads.numpy()),
+                                  jnp.asarray(lens.numpy()), pool)
+        assert np.array_equal(freq.numpy(), np.asarray(jf))
+    # k-mers that occur at every entry of the pool; every lane past its
+    # read's top entry fake
+    assert all((want[i, 0] > 0).any() for i in range(len(pool)))
+    for r, n in enumerate(lens.tolist()):
+        assert (want[-1, r, max(n - pool[-1] + 1, 0):] == -1).all()

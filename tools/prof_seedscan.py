@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""attributes, estimate_best and remove_hitchhiking on one CUDA card, variant by variant.
+"""attributes, estimate_best and remove_hitchhiking on one CUDA card, build by build.
 
     python3 tools/prof_seedscan.py [--tree NAME=DIR ...] [--variants a,b,...]
                                    [--sass DIR]
@@ -22,15 +22,20 @@ main path gives the chunk's width:
   of 7) and chain floor: the device ms of the build's kernel on the
   chunk's longest read alone (attributes) and on the seed whose pole walks
   the most k steps alone (estimate_best, chip_smoke.longest_pole);
-* remove_hitchhiking (the package's) event and device ms;
-* estimate_best's longest pole walk in k steps.
+* remove_hitchhiking of every build, held against its plain version, its
+  event and device ms and chain floor: the device ms of the build's kernel
+  on the read whose seed has the most pairs within the radius alone
+  (chip_smoke.longest_window);
+* estimate_best's longest pole walk in k steps, remove_hitchhiking's
+  longest window in pairs.
 
 First, the card's L2 round trip (one thread chasing a random cycle of
 128-byte lines through 16 MB, L1 bypassed: CHASE_CU) and the device ms of
 that kernel with no load, which is what device_ms reads for any launch.
 
 One JSON line per measurement, the card's name and power limit first.
-Exits 1 if a build differs from the plain version.
+Exits 1 if a build differs from the plain version (the variants that skip
+work, INEXACT, are timed and their exactness printed, but not held to it).
 """
 import argparse
 import ctypes
@@ -46,8 +51,9 @@ from kernel_variants import REPO, build, cs, device_ms, say, variant  # noqa: E4
 
 OUT = os.path.join(REPO, "build", "prof_seedscan")
 SOURCES = ("seedscan.cu",)
-ENTRIES = ("lrsc_attributes", "lrsc_estimate_best")
+ENTRIES = ("lrsc_attributes", "lrsc_estimate_best", "lrsc_remove_hitchhiking")
 KERNELS = ("attributes", "estimate_best", "remove_hitchhiking")
+INEXACT = ("hitch-noorder", "hitch-nowalk")  # variants that skip work: timed, not held
 
 CHASE_CU = r"""
 #include <cuda_runtime.h>
@@ -110,6 +116,59 @@ ATTR_SMEM_LAUNCH = """  const size_t shmem = (size_t)32 * ((L + 31) / 32);
 """
 
 
+HITCH_SIDE_BY_SIDE = """  bool hitch = false, down = t < nr, up = t < nr;
+  for (int d = 1; (down || up) && !hitch; ++d) {
+    const int q = max(t - d, 0), s = min(t + d, nr - 1);
+    down &= t - d >= 0;
+    up &= t + d < nr;
+    const int eq = seed_end(starts, sizes, o + q), ss = __ldg(starts + o + s);
+    const bool rq = reps[o + q], rs = reps[o + s];
+    const float fq = (float)__ldg(freqs + o + q), fs = (float)__ldg(freqs + o + s);
+    const bool nq = down && wrap_sub(st, eq) <= radius;
+    const bool ns = up && wrap_sub(ss, en) <= radius;
+    hitch = (nq & rq & (ft / fq < hh)) | (ns & rs & (fs / ft > inv_hh));
+    if (ordered) {
+      down = nq;
+      up = ns;
+    }
+  }
+"""
+# the two walks one after the other: a step's records in one round of
+# loads (LOADS_FIRST) or its freq and repeat flag only once the pair is in
+# reach (BRANCHY)
+HITCH_WALKS = """  bool hitch = false;
+  if (t < nr) {
+    for (int q = t - 1; q >= 0 && !hitch; --q) {
+%s    }
+    for (int s = t + 1; s < nr && !hitch; ++s) {
+%s    }
+  }
+"""
+HITCH_LOADS_FIRST = HITCH_WALKS % ("""      const bool near = wrap_sub(st, seed_end(starts, sizes, o + q)) <= radius;
+      const bool rep = reps[o + q];
+      const float fq = (float)__ldg(freqs + o + q);
+      hitch = near & rep & (ft / fq < hh);
+      if (!near && ordered) break;
+""", """      const bool near = wrap_sub(__ldg(starts + o + s), en) <= radius;
+      const bool rep = reps[o + s];
+      const float fs = (float)__ldg(freqs + o + s);
+      hitch = near & rep & (fs / ft > inv_hh);
+      if (!near && ordered) break;
+""")
+HITCH_BRANCHY = HITCH_WALKS % ("""      if (wrap_sub(st, seed_end(starts, sizes, o + q)) > radius) {
+        if (ordered) break;
+        continue;
+      }
+      hitch = reps[o + q] && ft / (float)__ldg(freqs + o + q) < hh;
+""", """      if (wrap_sub(__ldg(starts + o + s), en) > radius) {
+        if (ordered) break;
+        continue;
+      }
+      hitch = reps[o + s] && (float)__ldg(freqs + o + s) / ft > inv_hh;
+""")
+ORDER_UNROLL = "#pragma unroll 4\n  for (int b = 0; b < nr; b += 32) {"
+
+
 def const(name, value):
     """The edit setting seedscan.cu's `constexpr int name` to value."""
     from longreadselfcorrect_tpu_torch.ops import cuda
@@ -145,6 +204,28 @@ def variants():
         "best-slots128": [const("kBestSlots", 128)],
         "best-slots512": [const("kBestSlots", 512)],
         "best-512": [const("kBestThreads", 512)],
+        # remove_hitchhiking: 1 or 8 warps a block; every read's pairs all
+        # tested (the order check made to fail: what the window saves)
+        "hitch-warps1": [const("kHitchWarps", 1)],
+        "hitch-warps8": [const("kHitchWarps", 8)],
+        "hitch-allpairs": [("seedscan.cu", "  return !__any_sync(kFullMask, bad);",
+                            "  return !__any_sync(kFullMask, bad) && nr < 0;")],
+        # remove_hitchhiking without its order check, and without its walks
+        # (neither is exact in general: they show what each part costs)
+        "hitch-noorder": [("seedscan.cu", "  return !__any_sync(kFullMask, bad);",
+                           "  return true;")],
+        "hitch-nowalk": [("seedscan.cu", "(down || up) && !hitch;",
+                          "(down || up) && !hitch && nr < 0;")],
+        # remove_hitchhiking: the order check's loads 1, 8 or 16 rounds at
+        # once
+        **{f"hitch-order{u}": [("seedscan.cu", ORDER_UNROLL,
+                                ORDER_UNROLL.replace("unroll 4", f"unroll {u}"))]
+           for u in (1, 8, 16)},
+        # remove_hitchhiking: the walks one after the other, a step's
+        # records in one round of loads, or its freq and repeat flag only
+        # once its pair is in reach
+        "hitch-sequential": [("seedscan.cu", HITCH_SIDE_BY_SIDE, HITCH_LOADS_FIRST)],
+        "hitch-branchy": [("seedscan.cu", HITCH_SIDE_BY_SIDE, HITCH_BRANCHY)],
     }
 
 
@@ -229,6 +310,19 @@ def main() -> int:
                 oor.data_ptr(), stream()) == 0
         return call, (sk, ek, oor)
 
+    hh, inv_hh = seedscan.hh_constants(float(pp.hh_ratio))
+
+    def hitch_call(lib, n, starts, sizes, freqs, reps):
+        """lib's remove_hitchhiking: (launch, its output)."""
+        R, S = starts.shape
+        keep = torch.ones((R, S), dtype=torch.bool, device="cuda")
+
+        def call():
+            assert lib.lrsc_remove_hitchhiking(
+                n.data_ptr(), starts.data_ptr(), sizes.data_ptr(), freqs.data_ptr(),
+                reps.data_ptr(), R, S, pp.radius, hh, inv_hh, keep.data_ptr(), stream()) == 0
+        return call, keep
+
     for label, reads in (("8%", items), ("15%", dp), ("long", seg), ("N", nchunk)):
         for ci, (_, _, mat, lens_np) in enumerate(corr._seed_chunks(reads)):
             R, L = mat.shape
@@ -252,38 +346,37 @@ def main() -> int:
             r = int(lens.argmax())
             one_read = (fscan[r : r + 1], prefix[r : r + 1], lens[r : r + 1])
             pole = cs.longest_pole(freq, n, starts, sizes, statics, steps)
+            hitch_args = (n, starts, sizes, freqs, reps)
+            want_keep = seedscan.remove_hitchhiking_plain(*hitch_args, pp.radius,
+                                                          float(pp.hh_ratio))
+            window, most_pairs = cs.longest_window(*hitch_args, pp.radius)
             row = dict(set=label, chunk=ci, R=R, L=L, slots=slots, seeds=int(n.sum()),
                        most_seeds=int(n.max()), longest_walk=int(steps.max()),
-                       walk_steps=st["walk_steps"])
+                       walk_steps=st["walk_steps"], longest_window_pairs=most_pairs)
             for name in names:
                 lib = libs[(name, "seedscan.cu")]
                 res = {}
                 call_attr, out = attr_call(lib, fscan, prefix, lens)
                 call_best, got_best = best_call(lib, freq, n, starts, sizes, statics)
+                call_hitch, keep = hitch_call(lib, *hitch_args)
                 for k, call, check, floor in (
                         ("attributes", call_attr, lambda: torch.equal(out, attr),
                          attr_call(lib, *one_read)[0]),
                         ("estimate_best", call_best,
                          lambda: all(torch.equal(g, w) for g, w in zip(got_best, want_best)),
-                         best_call(lib, *pole)[0])):
+                         best_call(lib, *pole)[0]),
+                        ("remove_hitchhiking", call_hitch, lambda: torch.equal(keep, want_keep),
+                         hitch_call(lib, *window)[0])):
                     call()
                     torch.cuda.synchronize()
                     ok = check()
-                    if not ok:
+                    if not ok and name not in INEXACT:
                         bad.append(f"{k} {name} {label} chunk {ci}")
                     res[k] = dict(exact=bool(ok), ms=round(cs.time_ms(call), 4),
                                   device_ms=device_ms(call), chain_floor_ms=device_ms(floor))
                     key = (label, name, k)
                     sums[key] = sums.get(key, 0.0) + res[k]["device_ms"]
                 row[name] = res
-
-            def hitch():
-                return seedscan.remove_hitchhiking(n, starts, sizes, freqs, reps, pp.radius,
-                                                   float(pp.hh_ratio))
-            row["remove_hitchhiking"] = dict(ms=round(cs.time_ms(hitch), 4),
-                                             device_ms=device_ms(hitch))
-            key = (label, "shipped", "remove_hitchhiking")
-            sums[key] = sums.get(key, 0.0) + row["remove_hitchhiking"]["device_ms"]
             say(**row)
     say(device_ms_by_set={f"{s} {n} {k}": round(v, 4) for (s, n, k), v in sums.items()})
     say(exact=not bad, mismatches=bad)
