@@ -107,6 +107,29 @@ exits non-zero without the final result line):
             times: the DP fallback's loops in numpy, on the card, on the
             card, in numpy; the outputs equal; the seed kernels' launches
             of each turn
+13. edge    the three inputs the port once got wrong, through
+            process_stream on the card, launch counts reset just before:
+            (a) the 8% set's first 64 reads with every other one
+            lowercased, output and prefetch counters equal to the same
+            reads upper case; (b) a stream whose last batch is 64 empty
+            records, and one whose only batch is; (c) 64 reads of 15-52 bp
+            cut from the genome at 8% error; each held against the host
+            SelfCorrector (the lowercased reads on the first 4)
+14. multiproc  pbcorrect --engine device --device cuda over the 2048
+            further reads (-c 30 -g 10) as N = 1, 2 and 4 processes sharing
+            the card (--num-processes): correct.fa, discard.fa and the
+            summary byte-equal across N and to phase 12's results; per N
+            the wall time, each rank's stream reads/s (its last "Processed
+            n sequences in t s" line) and their sum, all reads over the
+            span of the ranks' stream windows (first start to last end)
+            and the time all N streamed at once, each rank's peak
+            memory_allocated and launches, and os.cpu_count()
+15. multigpu  entry.dryrun_multigpu over every visible card (NCCL; one rank
+            in this process on a one-card machine), then sharded_multistep
+            against the unsharded walk_steps on phase 5's 512-lane batch,
+            bit for bit; the same with every rank's shard at world sizes 2
+            and 4 walked on the card in this process, at G 512 and 509
+            (padding lanes); and the device time of a 13-float all_reduce
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -2145,6 +2168,299 @@ def phase_throughput(hix, wx, params, extra):
         say(f"throughput: DP route {route}, tables warm, "
             f"{stream_line(corrector, results, dt)}; seed kernel launches "
             + json.dumps({k: cuda.LAUNCHES[k] for k in SEED_KERNELS}))
+    return first
+
+
+def correct_fa(items, results) -> str:
+    """The correct.fa pbcorrect writes for these results."""
+    return "".join(f">{rid}\n{s}\n" for (rid, _), r in zip(items, results) if r.merge
+                   for s in r.corrected_strs)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the repaired edge cases on the card
+# ---------------------------------------------------------------------------
+
+N_EDGE_HOST = 4       # lowercased reads held against the host SelfCorrector
+
+
+def phase_edge(hix, wx, params, items):
+    """Lowercased reads, all-empty batches and 15-52 bp reads through
+    process_stream, launch counts reset just before; each held against the
+    host SelfCorrector."""
+    import numpy as np
+    import torch
+
+    from longreadselfcorrect_tpu_torch.core.batch_correct import BatchedSelfCorrector
+    from longreadselfcorrect_tpu_torch.core.correct import SelfCorrector
+    from longreadselfcorrect_tpu_torch.ops import cuda
+
+    first = items[:BATCH_READS]
+    lower = [(rid, seq.lower() if i % 2 else seq) for i, (rid, seq) in enumerate(first)]
+    empty = [(f"e{i}", "") for i in range(BATCH_READS)]
+    genome = make_genome(np.random.default_rng(2026))
+    rng = np.random.default_rng(2031)
+    short = []
+    for i in range(BATCH_READS):
+        p = int(rng.integers(0, GENOME_LEN - 200))
+        short.append((f"t{i}", noisify(rng, genome[p : p + 200], 0.08)[: 15 + i % 38]))
+    check(all(len(s) == 15 + i % 38 for i, (_, s) in enumerate(short)), "edge: read lengths")
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    runs = {}
+    for name, batches in (("upper", [first]), ("lower", [lower]),
+                          ("empty_last", [first, empty]), ("empty_only", [empty]),
+                          ("short", [short])):
+        corrector = BatchedSelfCorrector(hix, wx, params)
+        runs[name] = ([r for part in corrector.process_stream(batches) for r in part],
+                      dict(corrector.stats))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+
+    def same(a, b, what):
+        check(len(a) == len(b), f"edge: {what}: {len(a)} results, {len(b)} expected")
+        for x, y in zip(a, b):
+            for name in COUNTERS:
+                check(getattr(x, name) == getattr(y, name),
+                      f"edge: {what}: read {x.read_id} {name} differs")
+
+    (up, st_up), (lo, st_lo) = runs["upper"], runs["lower"]
+    same(lo, up, "lowercased vs upper case")
+    for k in ("prefetch_hit", "prefetch_miss", "host_fallback"):
+        check(st_lo[k] == st_up[k], f"edge: lowercased reads {k} {st_lo[k]}, upper {st_up[k]}")
+    host = SelfCorrector(hix, params)
+    t1 = time.perf_counter()
+    same(lo[:N_EDGE_HOST], [host.process(rid, seq) for rid, seq in lower[:N_EDGE_HOST]],
+         "lowercased vs host")
+    t_lower = time.perf_counter() - t1
+    host_empty = [host.process(rid, seq) for rid, seq in empty]
+    same(runs["empty_last"][0], up + host_empty, "last batch empty")
+    same(runs["empty_only"][0], host_empty, "only batch empty")
+    check(not any(r.merge for r in host_empty), "edge: an empty read was merged")
+    t1 = time.perf_counter()
+    same(runs["short"][0], [host.process(rid, seq) for rid, seq in short], "15-52 bp vs host")
+    t_short = time.perf_counter() - t1
+    missing = [k for k in SEED_KERNELS + ("walk_prep",) if launches[k] <= 0]
+    check(not missing, f"edge: kernels {missing} were not launched")
+    n_lower = sum(c.islower() for _, s in lower for c in s)
+    say(f"edge: {len(lower)} reads, {n_lower} lowercase symbols in every other read: "
+        f"results and lookups equal to upper case ({json.dumps(st_lo)}), the first "
+        f"{N_EDGE_HOST} equal to the host SelfCorrector ({t_lower:.1f}s); a stream of "
+        f"{len(first)} reads then {len(empty)} empty records and one of the empty records "
+        f"alone: equal to the host, none merged; {len(short)} reads of 15-52 bp "
+        f"({sum(r.total_seed_num > 0 for r in runs['short'][0])} with seeds, "
+        f"{sum(r.merge for r in runs['short'][0])} merged) equal to the host "
+        f"({t_short:.1f}s); the five streams {dt:.2f}s; launches {json.dumps(launches)}")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: pbcorrect as N processes sharing the card
+# ---------------------------------------------------------------------------
+
+# one pbcorrect rank: the CLI, then its peak device memory and launches
+RANK_MAIN = (
+    "import json, sys\n"
+    "import torch\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "from longreadselfcorrect_tpu_torch import cli\n"
+    "from longreadselfcorrect_tpu_torch.ops import cuda\n"
+    "rc = cli.main(sys.argv[2:])\n"
+    "print('RANK ' + json.dumps({'peak_bytes': torch.cuda.max_memory_allocated(), "
+    "'launches': cuda.LAUNCHES}), file=sys.stderr, flush=True)\n"
+    "sys.exit(rc)\n")
+PROCESSES = (1, 2, 4)
+
+
+def summary_lines(stdout: str) -> list:
+    """pbcorrect's summary without its three per-phase timer lines."""
+    return [line for line in stdout.splitlines()
+            if line and not line.startswith("Time of searching")]
+
+
+def run_ranks(cmds, timeout):
+    """Start every command at once; [(returncode, stdout, stderr)], every
+    process stopped before returning."""
+    procs = [subprocess.Popen(c, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, o, e) for p, (o, e) in zip(procs, outs)]
+
+
+def phase_multiproc(reads_fa, prefix, want_correct):
+    """pbcorrect over reads_fa as N processes on the card, for each N of
+    PROCESSES; outputs equal across N and to want_correct."""
+    from longreadselfcorrect_tpu_torch.entry import free_port
+
+    first = None
+    per_n = []
+    for n in PROCESSES:
+        out = os.path.join(CACHE, f"multiproc{n}")
+        if os.path.isdir(out):
+            for f in os.listdir(out):
+                os.remove(os.path.join(out, f))
+        argv = ["pbcorrect", reads_fa, "-p", prefix, "-o", out, "-c", str(COVERAGE),
+                "-g", "10", "--engine", "device", "--device", "cuda"]
+        port = free_port()
+        cmds = [[sys.executable, "-c", RANK_MAIN, REPO] + argv
+                + (["--num-processes", str(n), "--process-id", str(r),
+                    "--coordinator", f"127.0.0.1:{port}"] if n > 1 else [])
+                for r in range(n)]
+        t0 = time.perf_counter()
+        ranks = run_ranks(cmds, 900)
+        wall = time.perf_counter() - t0
+        rows = []
+        for r, (rc, stdout, stderr) in enumerate(ranks):
+            check(rc == 0, f"multiproc: N={n} rank {r} exited with {rc}:\n{stderr[-3000:]}")
+            done = re.findall(r"Processed (\d+) sequences in ([\d.]+)s", stderr)
+            check(bool(done), f"multiproc: N={n} rank {r} printed no progress line")
+            info = json.loads(stderr.rsplit("RANK ", 1)[1].splitlines()[0])
+            k, t = int(done[-1][0]), float(done[-1][1])
+            win = re.findall(r"Stream of (\d+) sequences from ([\d.]+) to ([\d.]+)", stderr)
+            check(len(win) == 1, f"multiproc: N={n} rank {r} printed no stream window")
+            rows.append(dict(rank=r, reads=k, s=t, reads_per_s=round(k / t, 2),
+                             stream_reads=int(win[0][0]), start=float(win[0][1]),
+                             end=float(win[0][2]),
+                             peak_mb=round(info["peak_bytes"] / 1e6, 1),
+                             launches={x: info["launches"][x] for x in SEED_KERNELS
+                                       + WALK_KERNELS + MSA_KERNELS}))
+        # walk_steps runs only where a gap needs a batch bucket or a rerun,
+        # so each kernel must have run in some rank of the N
+        missing = [k for k in SEED_KERNELS + WALK_KERNELS
+                   if not any(x["launches"][k] for x in rows)]
+        check(not missing, f"multiproc: N={n}: no rank launched {missing}")
+        with open(os.path.join(out, "correct.fa")) as f1, \
+                open(os.path.join(out, "discard.fa")) as f2:
+            files = (f1.read(), f2.read())
+        got = (files, summary_lines(ranks[0][1]))
+        check(got[1] != [], f"multiproc: N={n} printed no summary")
+        check(all(not o for _, o, _ in ranks[1:]), f"multiproc: N={n} a rank > 0 printed")
+        if first is None:
+            first = got
+            check(files[0] == want_correct,
+                  "multiproc: correct.fa differs from phase 12's stream")
+        check(got == first, f"multiproc: N={n} output differs from N={PROCESSES[0]}")
+        # the ranks' stream windows on one clock: all reads over the span
+        # from the first start to the last end, and the time every rank
+        # was streaming at once
+        t_first = min(x["start"] for x in rows)
+        span = max(x["end"] for x in rows) - t_first
+        overlap = max(0.0, min(x["end"] for x in rows) - max(x["start"] for x in rows))
+        for x in rows:
+            x["start"], x["end"] = round(x["start"] - t_first, 3), round(x["end"] - t_first, 3)
+        per_n.append(dict(N=n, wall_s=round(wall, 2),
+                          sum_reads_per_s=round(sum(x["reads_per_s"] for x in rows), 2),
+                          span_reads_per_s=round(sum(x["stream_reads"] for x in rows) / span, 2),
+                          span_s=round(span, 3), overlap_s=round(overlap, 3),
+                          overlap_share=round(overlap / span, 3), ranks=rows))
+        say(f"multiproc: N={n} processes on one card: wall {wall:.2f}s, stream reads/s per "
+            f"rank (last progress line) and their sum, all reads over the span of the "
+            f"ranks' stream windows (first start to last end, s from the first start), "
+            f"the time all N streamed at once {json.dumps(per_n[-1])}")
+    say(f"multiproc: correct.fa ({first[0][0].count('>')} reads), discard.fa "
+        f"({first[0][1].count('>')} reads) and the summary equal for N = "
+        f"{', '.join(map(str, PROCESSES))} and to phase 12; os.cpu_count() "
+        f"{os.cpu_count()}; summary {json.dumps(first[1])}")
+    return per_n
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the multi-GPU path (NCCL)
+# ---------------------------------------------------------------------------
+
+def in_process_shards(wx, pool, bcfg, e, cov):
+    """The ranks' shards of a walk batch walked one after another on this
+    card (mesh.shard_lanes at world sizes 2 and 4, as shard_walk_batch
+    splits them), their Reduced fields concatenated and cut to G: equal to
+    the unsharded walk_steps bit for bit, at G = WALK_BATCH and at a G
+    that leaves padding lanes.  Returns [{G, world, pad lanes}]."""
+    from dataclasses import replace
+
+    import torch
+
+    from longreadselfcorrect_tpu_torch.ops import walk
+    from longreadselfcorrect_tpu_torch.parallel import mesh
+
+    out = []
+    for G in (WALK_BATCH, WALK_BATCH - 3):
+        gcfg = replace(bcfg, G=G)
+        consts, state = walk.build_batch(wx, pool[:G], gcfg, e, cov)
+        ref = walk.walk_steps(wx, consts, walk.clone(state), gcfg, MAX_STEPS)
+        for world in (2, 4):
+            parts = []
+            for r in range(world):
+                c, s = mesh.shard_lanes(consts, walk.clone(state), world, r)
+                parts.append(walk.walk_steps(wx, c, s, replace(gcfg, G=s.code.shape[0]),
+                                             MAX_STEPS))
+            got = walk.Reduced(**{f: torch.cat([getattr(p, f) for p in parts])[:G]
+                                  for f in walk.REDUCED_FIELDS})
+            err = tensors_err(got, ref)
+            check(err == 0, f"multigpu: G={G} in {world} shards differs from the "
+                  f"unsharded walk ({err})")
+            out.append(dict(G=G, world=world, pad=-G % world))
+    return out
+
+
+def phase_multigpu(wx, corrector, pool):
+    """entry.dryrun_multigpu over every card, launch counts reset just
+    before; then phase 5's 512-lane batch sharded over the process group
+    against the unsharded walk, every rank's shard at world sizes 2 and 4
+    walked in this process (in_process_shards), and a 13-float
+    all_reduce's device time.
+    Returns the all_reduce's device ms."""
+    from dataclasses import replace
+
+    import torch
+
+    from longreadselfcorrect_tpu_torch import entry
+    from longreadselfcorrect_tpu_torch.ops import cuda, walk
+    from longreadselfcorrect_tpu_torch.parallel import distributed, mesh
+
+    n = torch.cuda.device_count()
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    dry = entry.dryrun_multigpu(n)
+    t_dry = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    if n == 1:
+        missing = [k for k in ("walk_prep", "walk_steps") if launches[k] <= 0]
+        check(not missing, f"multigpu: the dry run launched no {missing}")
+    distributed.init(f"127.0.0.1:{entry.free_port()}", 1, 0)
+    try:
+        dev = distributed.rank_device(0, "cuda")
+        group = mesh.make_group(dev)
+        e, cov = corrector.params.error_rate, corrector.params.pb_coverage
+        bcfg = replace(corrector.cfg, G=WALK_BATCH)
+        consts, state = walk.build_batch(wx, pool[:WALK_BATCH], bcfg, e, cov)
+        ref = walk.walk_steps(wx, consts, walk.clone(state), bcfg, MAX_STEPS)
+        sh = mesh.sharded_multistep(wx, *mesh.shard_walk_batch(group, consts, state),
+                                    bcfg, MAX_STEPS, group, WALK_BATCH)
+        err = tensors_err(sh, ref)
+        check(err == 0, f"multigpu: the sharded walk differs from the unsharded ({err})")
+        shards = in_process_shards(wx, pool, bcfg, e, cov)
+        x = torch.ones(13, dtype=torch.float32, device=dev)
+        ar_dev = device_ms(lambda: torch.distributed.all_reduce(x, group=group))
+        ar_ev = time_ms(lambda: torch.distributed.all_reduce(x, group=group))
+        total = mesh.all_reduce_counters(group, torch.ones((1, 13), device=dev))
+        check(bool((total == 1).all()), "multigpu: the counter all-reduce is not the sum")
+        backend = torch.distributed.get_backend(group)
+    finally:
+        distributed.shutdown()
+    say(f"multigpu: dryrun_multigpu({n}) {json.dumps(dry)} in {t_dry:.2f}s, launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}; {backend} group of 1: "
+        f"sharded_multistep on the {WALK_BATCH}-lane batch equal to walk_steps (codes "
+        f"{sorted(set(ref.code.tolist()))}); every rank's shard walked in this process "
+        f"{json.dumps(shards)}; all_reduce of 13 floats {ar_dev:.4f} device ms, "
+        f"{ar_ev:.4f} event ms")
+    return ar_dev
 
 
 def main() -> int:
@@ -2178,12 +2494,16 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_trace(hix, wx, params, dp, "trace-dp", tuple(KERNEL_INFO))
     say(f"trace-dp: in {time.perf_counter() - t0:.1f}s")
-    phase_throughput(hix, wx, params, extra)
+    turn = phase_throughput(hix, wx, params, extra)
     rec["walk_steps"]["max_abs_err"] = max([rec["walk_steps_one"]["err"],
                                             rec["walk_steps_all"]["err"]]
                                            + [r["err"] for r in checks.steps.values()])
     rec["walk_queue"]["max_abs_err"] = max([rec["walk_queue"]["err"]]
                                            + [r["err"] for r in checks.queue.values()])
+    phase_edge(hix, wx, params, items)
+    phase_multiproc(os.path.join(CACHE, "stream.fa"), os.path.join(CACHE, "corpus"),
+                    correct_fa(extra, turn))
+    phase_multigpu(wx, corrector, checks.pool)
     for k in MSA_KERNELS:
         launches[k] = dp_launches[k]
     launches.update(table_launches)

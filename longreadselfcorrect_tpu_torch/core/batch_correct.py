@@ -89,7 +89,8 @@ class BatchedSelfCorrector(SelfCorrector):
         PAD_RANK, lens int32 [R]) as numpy arrays."""
         R = CHUNK_READS
         L = max(len(seq) for _, seq in items)
-        L = L_BUCKET * ((L + L_BUCKET - 1) // L_BUCKET)
+        # a batch of only empty reads still gets one bucket: no launch at L 0
+        L = L_BUCKET * max((L + L_BUCKET - 1) // L_BUCKET, 1)
         for base in range(0, len(items), R):
             chunk = items[base : base + R]
             mat = np.full((R, L), ab.PAD_RANK, np.int8)
@@ -161,7 +162,10 @@ class BatchedSelfCorrector(SelfCorrector):
                 seeds, outcasts = [], []
                 for j in range(int(n[i])):
                     st, sz = int(starts[i, j]), int(sizes[i, j])
-                    s = Seed.make(seq[st : st + sz], st, int(freqs[i, j]),
+                    # from rank space, as search_seeds does: upper case
+                    # whatever the read's case
+                    word = ab.decode(ab.encode(seq[st : st + sz]))
+                    s = Seed.make(word, st, int(freqs[i, j]),
                                   bool(reps[i, j]), int(statics[i, j]),
                                   pp.pb_coverage)
                     if oor[i, j]:
@@ -482,9 +486,12 @@ class BatchedSelfCorrector(SelfCorrector):
             self.stats["prefetch_miss"] += 1
             self._read_incomplete = True
             # pretend success shaped like the raw-subsequence fallback: only
-            # the resulting source tail matters until the read is replayed
+            # the resulting source tail matters until the read is replayed;
+            # upper case, as a walk's output is, so that the next gap's key
+            # does not depend on the read's case
             result.fm_num += 1
-            return 1, read_seq[source.seed_end_pos + 1 : target.seed_end_pos + 1]
+            return 1, ab.decode(ab.encode(read_seq[source.seed_end_pos + 1 :
+                                                   target.seed_end_pos + 1]))
         else:
             self.stats["host_fallback"] += 1
             if hit is not None:

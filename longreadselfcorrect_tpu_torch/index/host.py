@@ -143,7 +143,8 @@ class HostIndexSet:
             if k == max_k:
                 break
             nxt = np.full(L, 0, dtype=np.int64)
-            nxt[: L - k] = read[k:]
+            # clamped for k > L (reads shorter than max_k); the JAX copy raises
+            nxt[: max(L - k, 0)] = read[k : k + max(L - k, 0)]
             live = np.arange(L) + k < L
             new_state = self.extend_bi(state, np.where(live, nxt, 1))
             state = tuple(np.where(live, n, o) for n, o in zip(new_state, state))

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import json
 import os
+import tempfile
 
 import numpy as np
 
@@ -67,6 +68,25 @@ def _source_stamp(prefix: str):
     return out
 
 
+def save_atomic(path: str, write) -> None:
+    """write(fh) into a new file beside path, then rename it over path: a
+    process that opens path sees the old file or the whole new one, never
+    a part (several processes may pack an index or write its walk tables
+    at once on first use)."""
+    fd, tmp = tempfile.mkstemp(suffix=".tmp", dir=os.path.dirname(path))
+    try:
+        with os.fdopen(fd, "wb") as fh:
+            write(fh)
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+
+
+def save_npy(path: str, a: np.ndarray) -> None:
+    save_atomic(path, lambda fh: np.save(fh, a))
+
+
 def save_pack(prefix: str, fwd_pack, rev_pack, num_strings: tuple[int, int],
               nsyms: tuple[int, int], wcache=None) -> None:
     d = _dir(prefix)
@@ -76,11 +96,11 @@ def save_pack(prefix: str, fwd_pack, rev_pack, num_strings: tuple[int, int],
         if name.startswith("wcache") and name.endswith(".npy") and name != "wcache.npy":
             os.remove(os.path.join(d, name))
     for tag, (blocks, ckpt, C) in (("fwd", fwd_pack), ("rev", rev_pack)):
-        np.save(os.path.join(d, f"{tag}.blocks.npy"), blocks)
-        np.save(os.path.join(d, f"{tag}.ckpt.npy"), ckpt)
-        np.save(os.path.join(d, f"{tag}.C.npy"), C)
+        save_npy(os.path.join(d, f"{tag}.blocks.npy"), blocks)
+        save_npy(os.path.join(d, f"{tag}.ckpt.npy"), ckpt)
+        save_npy(os.path.join(d, f"{tag}.C.npy"), C)
     if wcache is not None:
-        np.save(os.path.join(d, "wcache.npy"), wcache)
+        save_npy(os.path.join(d, "wcache.npy"), wcache)
     meta = {
         "version": PACK_VERSION,
         "block": PACK_BLOCK,
@@ -89,8 +109,8 @@ def save_pack(prefix: str, fwd_pack, rev_pack, num_strings: tuple[int, int],
         "num_symbols": list(nsyms),
         "source": _source_stamp(prefix),
     }
-    with open(os.path.join(d, "meta.json"), "w") as fh:
-        json.dump(meta, fh)
+    save_atomic(os.path.join(d, "meta.json"),
+                lambda fh: fh.write(json.dumps(meta).encode()))
 
 
 def _cache_k(rows: int) -> int:

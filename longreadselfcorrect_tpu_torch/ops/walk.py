@@ -42,6 +42,7 @@ import torch
 
 from ..core import alphabet as ab
 from ..index.fmindex import IndexSet
+from ..index.pack import save_npy
 from . import cuda, rank
 
 I32 = torch.int32
@@ -192,7 +193,7 @@ def get_tables(ix: IndexSet, host_ix, ck: int, reuse: bool = True):
     if top is None:
         top = levels[-1]
         if ck > CACHE_K and path is not None:
-            np.save(path, top.cpu().numpy())
+            save_npy(path, top.cpu().numpy())
     pyramid = (torch.cat(levels[: ck - 1]) if ck > 1
                else torch.zeros((0, 4), dtype=torch.int32, device=dev))
     caches[key] = (pyramid, top)
