@@ -8,7 +8,8 @@ exits non-zero without the final result line):
 
 1. device   the card's name and power limit (nvidia-smi); no CUDA -> fail
 2. build    the fifteen CUDA kernels from longreadselfcorrect_tpu_torch/csrc
-            with nvcc, one process per source, all at once; ptxas's
+            with nvcc, one process per source, all at once, and beside
+            them native/fmbuild and native/alnscore.so (make); ptxas's
             registers, stack frame and spill bytes of the kernels of
             walk.cu, seedscan.cu and msa.cu
 3. data     the bench corpus recipe: a 4 Mb random genome (seed 2026), 30x
@@ -130,6 +131,18 @@ exits non-zero without the final result line):
             bit for bit; the same with every rank's shard at world sizes 2
             and 4 walked on the card in this process, at G 512 and 509
             (padding lanes); and the device time of a 13-float all_reduce
+16. host    the host-only subcommands through the port's CLI, each a
+            `python -m longreadselfcorrect_tpu_torch.cli` subprocess with
+            PYTHONHASHSEED=0 under .torch_cache/host/: the PacBio hybrid
+            pipeline (preprocess, index, correct, index, pbhc, index,
+            fmwalk validate, filter, overlap, asmlong, with the index
+            stages filter and overlap read) on tests/test_hybrid.py's
+            corpus recipe at a 5 kb genome, then assemble, merge, oview,
+            subgraph, grep, kmerfreq, kmercheck, and all (beside the
+            rest); each stage's exit code 0 and the SHA-256 of its outputs
+            equal to HOST_DIGESTS, the JAX CLI's on the same corpus; the
+            pbhc pieces genome substrings, asmlong's longest contig 90% of
+            the genome; each stage's wall seconds (host time)
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -276,21 +289,36 @@ def ptxas_report(log: str) -> list:
 def phase_build():
     from longreadselfcorrect_tpu_torch.ops import cuda
 
+    # the host helpers, built beside the kernels: fmbuild (phase 3's index,
+    # phase 16's index stages) and alnscore.so (pbhc's aligner in phase 16);
+    # not hashorder.so, since phase 16's digests were taken without it
     t0 = time.perf_counter()
-    paths = cuda.build()
-    for lib in cuda.SOURCES:
-        cuda.library(lib)
-    say(f"build: {len(paths)} libraries ({len(cuda.KERNELS)} kernels) for sm_90a "
-        f"in {time.perf_counter() - t0:.2f}s")
-    for lib, first in (("walk", "walk_steps<4>"), ("seedscan", "scan_automaton"),
-                       ("msa", "lf_extract"), ("kmer_table", "kmer_table_full")):
-        if lib in cuda.BUILD_LOGS:
-            rep = ptxas_report(cuda.BUILD_LOGS[lib])
-            say(f"build: {lib}.cu ptxas (kernel, registers, stack frame B, spill stores B, "
-                f"spill loads B): {json.dumps(rep)}")
-            check(any(r[0] == first for r in rep), f"build: no ptxas report for {first}")
-        else:
-            say(f"build: {lib}.cu was built by an earlier run: no ptxas report")
+    make = subprocess.Popen(["make", "-C", os.path.join(REPO, "native"), "fmbuild",
+                             "alnscore.so"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        paths = cuda.build()
+        for lib in cuda.SOURCES:
+            cuda.library(lib)
+        say(f"build: {len(paths)} libraries ({len(cuda.KERNELS)} kernels) for sm_90a "
+            f"in {time.perf_counter() - t0:.2f}s")
+        for lib, first in (("walk", "walk_steps<4>"), ("seedscan", "scan_automaton"),
+                           ("msa", "lf_extract"), ("kmer_table", "kmer_table_full")):
+            if lib in cuda.BUILD_LOGS:
+                rep = ptxas_report(cuda.BUILD_LOGS[lib])
+                say(f"build: {lib}.cu ptxas (kernel, registers, stack frame B, spill stores B, "
+                    f"spill loads B): {json.dumps(rep)}")
+                check(any(r[0] == first for r in rep), f"build: no ptxas report for {first}")
+            else:
+                say(f"build: {lib}.cu was built by an earlier run: no ptxas report")
+    except BaseException:
+        make.kill()
+        make.wait()
+        raise
+    _, err = make.communicate()
+    check(make.returncode == 0, f"build: make -C native fmbuild alnscore.so: {err[-2000:]}")
+    say(f"build: native/fmbuild and native/alnscore.so (make -C native fmbuild alnscore.so) "
+        f"done {time.perf_counter() - t0:.2f}s after the start")
 
 
 # ---------------------------------------------------------------------------
@@ -2463,11 +2491,316 @@ def phase_multigpu(wx, corrector, pool):
     return ar_dev
 
 
+# ---------------------------------------------------------------------------
+# phase 16: host subcommands (the PacBio hybrid pipeline and the utilities)
+# ---------------------------------------------------------------------------
+
+# tests/test_hybrid.py's corpus recipe (rng seed 321): 60x of 100 bp short
+# reads and 5x of 1 kb long reads at 15% substitution error, on a genome cut
+# from 30 to 5 kb (at 30 kb the JAX CLI takes ~7 min on a CPU core for the
+# pipeline: correct 139 s, pbhc 104 s, fmwalk 64 s, overlap 66 s)
+HOST_SEED = 321
+HOST_GENOME_LEN = 5_000
+HOST_SR, HOST_SR_LEN = 3_000, 100
+HOST_PB, HOST_PB_LEN, HOST_PB_ERR = 25, 1000, 0.15
+# read pairs for `all` (rng seed 322): 30 pairs, 300 bp inserts, over the
+# genome's first 900 bp (its fmwalk takes ~1.2 s a pair on a CPU core)
+HOST_PAIRS, HOST_INSERT, HOST_PAIR_SPAN = 30, 300, 900
+HOST_BARCODED = 16                     # barcoded 1 kb reads for kmercheck (seed 323)
+HOST_ASM_SHARE = 0.9                   # asmlong's longest contig covers this share
+# the files `index` writes on both of its routes (fmbuild and numpy)
+INDEX_FILES = (".bwt.npz", ".rbwt.npz", ".lex", ".rlex", ".ssa", ".rssa")
+STDOUT = "<stdout>"
+
+
+def barcoded_reads(genome, rng, n, length, err):
+    """n reads of the genome with planted insertions and deletions, and
+    their barcode records (core/bcode.py's format: per read base one hex
+    pair, the upper digit counting an inserted base, the lower the flags
+    of the genome bases deleted after it)."""
+    base_hex = {"A": 1, "T": 2, "C": 4, "G": 8}
+    reads, records = [], []
+    for i in range(n):
+        p = int(rng.integers(0, len(genome) - length))
+        chars, upper, lower = [], [], []
+        for ch in genome[p : p + length]:
+            r = rng.random()
+            if r < err / 2 and chars:
+                lower[-1] |= base_hex[ch]          # ch deleted after the last base
+                continue
+            chars.append(ch)
+            upper.append(0)
+            lower.append(0)
+            if r < err:
+                chars.append("ACGT"[int(rng.integers(0, 4))])   # an inserted base
+                upper.append(1)
+                lower.append(0)
+        rid, seq = f"b{i}", "".join(chars)
+        code = "".join(f"{u:x}{d:x}" for u, d in zip(upper, lower))
+        reads.append((rid, seq))
+        records.append(f"{rid} 0 {len(seq) - 1} genome {p} {p + length} {code} False 1")
+    return reads, records
+
+
+def make_host_corpus(d: str) -> str:
+    """Phase 16's inputs under d; returns the genome."""
+    import numpy as np
+
+    from longreadselfcorrect_tpu_torch.core.alphabet import revcomp_str as revcomp
+
+    rng = np.random.default_rng(HOST_SEED)
+    genome = "".join(rng.choice(list("ACGT"), size=HOST_GENOME_LEN))
+    with open(os.path.join(d, "sr.fa"), "w") as f:
+        for i in range(HOST_SR):
+            p = int(rng.integers(0, HOST_GENOME_LEN - HOST_SR_LEN))
+            r = genome[p : p + HOST_SR_LEN]
+            f.write(f">s{i}\n{revcomp(r) if i % 2 else r}\n")
+    with open(os.path.join(d, "pb.fa"), "w") as f:
+        for i in range(HOST_PB):
+            p = int(rng.integers(0, HOST_GENOME_LEN - HOST_PB_LEN))
+            r = list(genome[p : p + HOST_PB_LEN])
+            for j in range(len(r)):
+                if rng.random() < HOST_PB_ERR:
+                    r[j] = "ACGT"[int(rng.integers(0, 4))]
+            f.write(f">pb{i}\n{''.join(r)}\n")
+    rng = np.random.default_rng(HOST_SEED + 1)
+    with open(os.path.join(d, "pe_1.fa"), "w") as f1, \
+            open(os.path.join(d, "pe_2.fa"), "w") as f2:
+        for i in range(HOST_PAIRS):
+            p = int(rng.integers(0, HOST_PAIR_SPAN - HOST_INSERT))
+            frag = genome[p : p + HOST_INSERT]
+            f1.write(f">p{i}/1\n{frag[:HOST_SR_LEN]}\n")
+            f2.write(f">p{i}/2\n{revcomp(frag[-HOST_SR_LEN:])}\n")
+    reads, records = barcoded_reads(genome, np.random.default_rng(HOST_SEED + 2),
+                                    HOST_BARCODED, 1000, 0.04)
+    with open(os.path.join(d, "kc.fa"), "w") as f:
+        f.writelines(f">{rid}\n{seq}\n" for rid, seq in reads)
+    with open(os.path.join(d, "kc.bcode"), "w") as f:
+        f.write("\n".join(records) + "\n")
+    with open(os.path.join(d, "grep.txt"), "w") as f:
+        f.write(" ".join([genome[p : p + 25] for p in (100, 2_500, 4_900)]
+                         + ["ACGT" * 8]) + "\n")
+    with open(os.path.join(d, "kmerfreq.txt"), "w") as f:
+        f.write(f"{genome[1000:1060]} 21 1\n{revcomp(genome[3000:3080])} 31 0\n")
+    return genome
+
+
+def host_stages():
+    """Phase 16's stages in order: (subcommand, argv, stdin file, output
+    files).  The PacBio hybrid pipeline (SURVEY.md: preprocess -> index ->
+    correct -> index -> pbhc -> index -> fmwalk validate -> filter ->
+    overlap -> asmlong; filter and overlap each read the index of their
+    own input), then the other subcommands on its outputs.  An argv item
+    that is a one-tuple names a FASTA file whose first read's id goes
+    there."""
+    def idx(p):
+        return [p + s for s in INDEX_FILES]
+
+    asqg = "pb.pass.asqg.gz"
+    return [
+        ("preprocess", ["preprocess", "--no-quality", "-o", "sr.pp.fa", "sr.fa"],
+         None, ["sr.pp.fa"]),
+        ("index", ["index", "sr.pp.fa"], None, idx("sr.pp")),
+        ("correct", ["correct", "-p", "sr.pp", "-o", "sr.ec.fa", "-k", "31", "-x", "3",
+                     "--discard", "sr.ec.discard.fa", "sr.pp.fa"],
+         None, ["sr.ec.fa", "sr.ec.discard.fa"]),
+        ("index", ["index", "sr.ec.fa"], None, idx("sr.ec")),
+        ("index", ["index", "pb.fa"], None, idx("pb")),
+        ("pbhc", ["pbhc", "pb.fa", "-p", "sr.ec", "-f", "pb", "-o", "pb.ec.fa",
+                  "-r", "100", "-c", "60"],
+         None, ["pb.ec.fa", "pb.ec.discard.fa", STDOUT]),
+        ("index", ["index", "pb.ec.fa"], None, idx("pb.ec")),
+        ("fmwalk", ["fmwalk", "-a", "validate", "-p", "sr.ec", "-m", "31",
+                    "--discard", "", "-o", "pb.valid.fa", "pb.ec.fa"],
+         None, ["pb.valid.fa"]),
+        ("index", ["index", "pb.valid.fa"], None, idx("pb.valid")),
+        ("filter", ["filter", "-p", "pb.valid", "--no-kmer-check", "-o", "pb.pass.fa",
+                    "pb.valid.fa"], None, ["pb.pass.fa", "pb.pass.fa.discard.fa"]),
+        ("index", ["index", "pb.pass.fa"], None, idx("pb.pass")),
+        ("overlap", ["overlap", "-p", "pb.pass", "-m", "100", "--exact", "-o", asqg,
+                     "pb.pass.fa"], None, [asqg]),
+        ("asmlong", ["asmlong", asqg, "-i", "400", "-m", "100", "-o", "asm"],
+         None, ["asm-contigs.fa", "asm-graph.asqg.gz", "StriDe-graph.dot"]),
+        ("assemble", ["assemble", asqg, "-p", "pb.pass", "-m", "100", "-r", "1000",
+                      "-i", "400", "--no-pe", "-o", "sasm"], None, ["sasm-contigs.fa"]),
+        ("merge", ["merge", "pb.pass.fa", "-p", "pb.pass", "-m", "100", "-o",
+                   "pb.merged.fa"], None, ["pb.merged.fa"]),
+        ("oview", ["oview", asqg], None, [STDOUT]),
+        ("subgraph", ["subgraph", ("pb.pass.fa",), asqg, "-s", "2", "-o", "sub.asqg.gz"],
+         None, ["sub.asqg.gz", "sub.asqg.gz.dot"]),
+        ("grep", ["grep", "sr.ec.fa", "-p", "sr.ec"], "grep.txt", [STDOUT]),
+        ("kmerfreq", ["kmerfreq", "-p", "sr.ec", "-c", "60"], "kmerfreq.txt", [STDOUT]),
+        ("kmercheck", ["kmercheck", "kc.fa", "-p", "sr.ec", "-o", "kc", "-b", "kc.bcode",
+                       "-c", "60"], None, ["kc/total.box", "kc/value.box"]),
+        ("all", ["all", "pe_1.fa", "pe_2.fa", "-r", "100", "-i", str(HOST_INSERT),
+                 "-d", "all"], None,
+         ["all/reads.fa", "all/READ.ECOLr.fasta", "all/merged.fa",
+          "all/merged.filter.pass.fa", "all/merged.filter.pass.asqg.gz",
+          "all/StriDe-contigs.fa"]),
+    ]
+
+
+def output_bytes(d: str, name: str) -> bytes:
+    """A stage output's content, decompressed for .gz (a gzip header holds
+    the time it was written), with the run directory's absolute path
+    written as <dir> (`all` names its ASQG's input file by it)."""
+    import gzip
+
+    path = os.path.join(d, name)
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        return f.read().replace(os.path.abspath(d).encode(), b"<dir>")
+
+
+def stage_digest(d: str, outputs, stdout: str) -> str:
+    """One SHA-256 over the digests of a stage's outputs, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in outputs:
+        data = stdout.encode() if name == STDOUT else output_bytes(d, name)
+        h.update(f"{name} {hashlib.sha256(data).hexdigest()}\n".encode())
+    return h.hexdigest()
+
+
+def run_host_stage(module: str, d: str, stage, env=None):
+    """One stage as `python -m module ...` in d with PYTHONHASHSEED=0 (and
+    env's variables): (argv, returncode, stdout, stderr, wall seconds)."""
+    from longreadselfcorrect_tpu_torch.io import fasta
+
+    _, argv, stdin, _ = stage
+    argv = [next(fasta.read_seqs(os.path.join(d, a[0]))).id if isinstance(a, tuple) else a
+            for a in argv]
+    env = {**os.environ, "PYTHONHASHSEED": "0", **(env or {})}
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    fin = open(os.path.join(d, stdin)) if stdin else subprocess.DEVNULL
+    t0 = time.perf_counter()
+    try:
+        p = subprocess.run([sys.executable, "-m", module] + argv, cwd=d, env=env,
+                           stdin=fin, capture_output=True, text=True, timeout=600)
+    finally:
+        if stdin:
+            fin.close()
+    return argv, p.returncode, p.stdout, p.stderr, time.perf_counter() - t0
+
+
+def run_host_pipeline(module: str, d: str, env=None):
+    """Make the corpus in d and run every stage of host_stages through
+    module's CLI: (genome, [(label, argv, rc, stdout, stderr, seconds,
+    digest)] in stage order).  `all`, which reads only its own inputs, runs
+    beside the other stages; a failing stage ends the chain it is in."""
+    import threading
+
+    os.makedirs(d, exist_ok=True)
+    genome = make_host_corpus(d)
+    stages = list(enumerate(host_stages()))
+    chains = [[s for s in stages if s[1][0] == "all"], [s for s in stages if s[1][0] != "all"]]
+    done = {}
+
+    def run(chain):
+        for i, stage in chain:
+            argv, rc, so, se, dt = run_host_stage(module, d, stage, env)
+            dig = stage_digest(d, stage[3], so) if rc == 0 else None
+            done[i] = (f"{i:02d} {stage[0]}", argv, rc, so, se, dt, dig)
+            if rc != 0:
+                return
+
+    side = threading.Thread(target=run, args=(chains[0],))
+    side.start()
+    try:
+        run(chains[1])
+    finally:
+        side.join()
+    return genome, [done[i] for i in sorted(done)]
+
+
+def host_checks(genome: str, d: str) -> dict:
+    """What tests/test_hybrid.py and tests/test_assembly.py check, on
+    phase 16's outputs: the pbhc pieces are genome substrings (either
+    strand), and asmlong's longest contig is one and covers
+    HOST_ASM_SHARE of the genome."""
+    from longreadselfcorrect_tpu_torch.core.alphabet import revcomp_str as revcomp
+    from longreadselfcorrect_tpu_torch.io import fasta
+
+    pieces = [r.seq for r in fasta.read_seqs(os.path.join(d, "pb.ec.fa"))]
+    good = sum(s in genome or revcomp(s) in genome for s in pieces)
+    contigs = [r.seq for r in fasta.read_seqs(os.path.join(d, "asm-contigs.fa"))]
+    longest = max(contigs, key=len, default="")
+    return {"pieces": len(pieces), "pieces_in_genome": good,
+            "contigs": len(contigs), "longest": len(longest),
+            "longest_in_genome": longest in genome or revcomp(longest) in genome}
+
+
+# SHA-256 of each stage's outputs (stage_digest), from the JAX CLI on the
+# CPU (python -m longreadselfcorrect_tpu.cli, same corpus, PYTHONHASHSEED=0,
+# no native/hashorder.so); tests/test_torch_cli_host.py holds these against
+# a fresh run of the JAX CLI and of the port's
+HOST_DIGESTS = {
+    "00 preprocess": "1e83e75a58715eae17f1e161ca3ba552ed2729e7f8f2422dddef35eb494cb4bb",
+    "01 index": "c632827b02a3014ba16146463947ba02c667aa076f5ee4b5632977a0a4434155",
+    "02 correct": "55a97ce3be593522fd14252ff3406db9fa037bb5bb9411efa17ee1d065616731",
+    "03 index": "19d572a431a6cc39335446b0f8a81146aad54d97d68b1d451e904deddb85eaca",
+    "04 index": "b9aa547b3fd67259ce0d4e42d4a59568622b054d5c752ab5f3a82dba53e237c1",
+    "05 pbhc": "251ac8c11839d07352ae69619baa4709a8c63793d01cca52040e9966ca522aa9",
+    "06 index": "91ce642746ecfe24a0d8e421bf599c3915c1b6610ea4bb02beeb4907b42df08c",
+    "07 fmwalk": "1636ccb61ae3671bcf05229d9956b25348c24951b98defdf623d7ed3ce6cdece",
+    "08 index": "ada2962cb42c6672f1924511c453e77c111d26515e17fef9894c325bfd995de2",
+    "09 filter": "860436a27ad3c8ba8e0793f3f7568c9cbf3f46d9b29e99f6a413ed0118edf707",
+    "10 index": "06c3256012e0ca36303b460eb585e0751e82c70f2321f2b41f8114570d068ffd",
+    "11 overlap": "878c171dbf23f3836887d76d028778278d8189544c88c58b94ef8fed9f96bc34",
+    "12 asmlong": "ef4f278cb77f12723295cfbc4c2244dc78c183b6a5ee35eb4328afb102157f4f",
+    "13 assemble": "89aa17dd61e4ef6195cc58f16e924cd4bb0809d5843b5f7dc832e3eb4e923262",
+    "14 merge": "ea88e34360dd423a40211ea49838a9dc9ba5d4e46b887f577bee2662242ade32",
+    "15 oview": "f674b08dc144a8e1e653c1f81f4440ffc4344fb1aa7ada5aff61671b11eaf449",
+    "16 subgraph": "2373901c2f013938684068aa68dff6cefca61e26b36fc072001102748b8391bc",
+    "17 grep": "f56e9f5141ce553c211aae6ac11d5b418d167c2ecdefee4ed4a8e37a0193d5ba",
+    "18 kmerfreq": "201858876a61124de3b513db45b2223cfc8c06b9473a8e106b025b9f4bfc3a04",
+    "19 kmercheck": "5c736a6a7757f1877ccec0286e95f6b0f88b862c6dcae99d2b52abd0825cfaa0",
+    "20 all": "1dfab3ee718e38592f9b09c061f327735d26c69746b08725ba46cd65a24509c0",
+}
+
+
+def phase_host(smi: str):
+    """Phase 16: host subcommands through the port's CLI, each stage's
+    outputs held to HOST_DIGESTS."""
+    import shutil
+
+    hashorder = os.path.join(REPO, "native", "hashorder.so")
+    say("host: the PacBio hybrid pipeline, then assemble, merge, oview, subgraph, grep, "
+        "kmerfreq, kmercheck and all, each a `python -m longreadselfcorrect_tpu_torch.cli` "
+        "subprocess with PYTHONHASHSEED=0; index on native/fmbuild, pbhc's aligner "
+        "native/alnscore.so; native/hashorder.so not built: the digests are the JAX CLI's "
+        "without it (overlap_correct's anchors in insertion order)")
+    check(not os.path.exists(hashorder),
+          "host: native/hashorder.so exists; the digests were taken without it")
+    check(os.path.exists(os.path.join(REPO, "native", "fmbuild")), "host: no native/fmbuild")
+    d = os.path.join(CACHE, "host")
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    genome, runs = run_host_pipeline("longreadselfcorrect_tpu_torch.cli", d)
+    for label, argv, rc, so, se, dt, dig in runs:
+        say(f"host: {label:<13} {dt:7.2f} s wall, host time on the card's machine ({smi}); "
+            f"rc {rc}, digest {dig}")
+        check(rc == 0, f"host: {label} {' '.join(argv)} exited {rc}: {se[-3000:]}")
+        check(dig == HOST_DIGESTS.get(label),
+              f"host: {label} digest {dig}, the JAX CLI's {HOST_DIGESTS.get(label)}")
+    check(len(runs) == len(host_stages()), "host: a stage is missing")
+    res = host_checks(genome, d)
+    say(f"host: {len(runs)} stages in {time.perf_counter() - t0:.1f}s; pbhc pieces in the "
+        f"genome {res['pieces_in_genome']}/{res['pieces']}, asmlong contigs {res['contigs']}, "
+        f"longest {res['longest']} of {HOST_GENOME_LEN} bp, in the genome "
+        f"{res['longest_in_genome']}")
+    check(res["pieces"] > 0 and 2 * res["pieces_in_genome"] >= res["pieces"],
+          f"host: pbhc pieces in the genome {res}")
+    check(res["longest_in_genome"] and res["longest"] >= HOST_ASM_SHARE * HOST_GENOME_LEN,
+          f"host: asmlong's longest contig {res}")
+
+
 def main() -> int:
     import torch
 
     sys.path.insert(0, REPO)
-    name, _ = phase_device()
+    name, smi = phase_device()
     phase_build()
     hix, dix, items, extra, dp, seg, nchunk = phase_data()
 
@@ -2504,6 +2837,7 @@ def main() -> int:
     phase_multiproc(os.path.join(CACHE, "stream.fa"), os.path.join(CACHE, "corpus"),
                     correct_fa(extra, turn))
     phase_multigpu(wx, corrector, checks.pool)
+    phase_host(smi)
     for k in MSA_KERNELS:
         launches[k] = dp_launches[k]
     launches.update(table_launches)

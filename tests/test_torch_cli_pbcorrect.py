@@ -20,41 +20,12 @@ from longreadselfcorrect_tpu_torch import cli
 from longreadselfcorrect_tpu_torch.core import batch_correct
 from longreadselfcorrect_tpu_torch.io import fasta
 
+from chip_smoke import barcoded_reads
 from test_torch_correct import corpus  # noqa: F401
 
 # the walks' tensors are small: one torch thread is faster, and keeps the
 # parallel test workers from oversubscribing the cores
 torch.set_num_threads(1)
-
-BASE_HEX = {"A": 1, "T": 2, "C": 4, "G": 8}
-
-
-def barcoded_reads(genome, rng, n, length, err):
-    """n reads of the genome with planted insertions and deletions, and
-    their barcode records (core/bcode.py's format: per read base one hex
-    pair, the upper digit counting an inserted base, the lower the flags
-    of the genome bases deleted after it)."""
-    reads, records = [], []
-    for i in range(n):
-        p = int(rng.integers(0, len(genome) - length))
-        chars, upper, lower = [], [], []
-        for ch in genome[p : p + length]:
-            r = rng.random()
-            if r < err / 2 and chars:
-                lower[-1] |= BASE_HEX[ch]          # ch deleted after the last base
-                continue
-            chars.append(ch)
-            upper.append(0)
-            lower.append(0)
-            if r < err:
-                chars.append("ACGT"[int(rng.integers(0, 4))])   # an inserted base
-                upper.append(1)
-                lower.append(0)
-        rid, seq = f"b{i}", "".join(chars)
-        code = "".join(f"{u:x}{d:x}" for u, d in zip(upper, lower))
-        reads.append((rid, seq))
-        records.append(f"{rid} 0 {len(seq) - 1} genome {p} {p + length} {code} False 1")
-    return reads, records
 
 
 @pytest.fixture(scope="module")

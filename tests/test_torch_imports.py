@@ -42,14 +42,26 @@ try:
 except chip_smoke.PhaseError as e:
     raised["chip_smoke"] = str(e)
 print(json.dumps({"n": len(mods), "mods": mods, "bad": bad, "raised": raised,
-                  "cuda": torch.cuda.is_available()}))
+                  "cuda": torch.cuda.is_available(), "subcommands": subcommands(cli.main)}))
+"""
+
+SUBCOMMANDS = r"""
+def subcommands(main):
+    import contextlib, io, re
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            main(["--help"])
+        except SystemExit:
+            pass
+    return re.search(r"\{([a-z,]+)\}", buf.getvalue()).group(1).split(",")
 """
 
 
 def test_port_imports_no_jax_and_cuda_paths_raise(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
-    out = subprocess.run([sys.executable, "-c", PROBE], cwd=tmp_path, env=env,
+    out = subprocess.run([sys.executable, "-c", SUBCOMMANDS + PROBE], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
@@ -61,6 +73,13 @@ def test_port_imports_no_jax_and_cuda_paths_raise(tmp_path):
         assert f"longreadselfcorrect_tpu_torch.{m}" in res["mods"]
     if not res["cuda"]:
         assert set(res["raised"]) == {"cli", "fmindex", "chip_smoke"}, res["raised"]
+    # the port's CLI has every subcommand of the JAX CLI, in its order
+    from longreadselfcorrect_tpu import cli as jcli
+
+    scope = {}
+    exec(SUBCOMMANDS, scope)
+    want = scope["subcommands"](jcli.main)
+    assert len(want) == 17 and res["subcommands"] == want, (res["subcommands"], want)
 
 
 def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):
