@@ -130,7 +130,9 @@ exits non-zero without the final result line):
             against the unsharded walk_steps on phase 5's 512-lane batch,
             bit for bit; the same with every rank's shard at world sizes 2
             and 4 walked on the card in this process, at G 512 and 509
-            (padding lanes); and the device time of a 13-float all_reduce
+            (padding lanes); the device time of a 13-float all_reduce; and
+            parallel.distributed.global_counter_sum with its default device
+            (the card: it all-reduces a cuda tensor) equal to its input
 16. host    the host-only subcommands through the port's CLI, each a
             `python -m longreadselfcorrect_tpu_torch.cli` subprocess with
             PYTHONHASHSEED=0 under .torch_cache/host/: the PacBio hybrid
@@ -1567,7 +1569,7 @@ def phase_tables(corrector, hix, items, want):
         calls = {
             "kmer_freq_scan": (lambda: scan.kmer_freq_scan(ix, reads, lens, pool, wx),
                                lambda: scan.kmer_freq_scan_plain(ix, reads, lens, pool)),
-            "kmer_table_wire": (lambda: scan.kmer_table_wire(ix, reads, lens, max_k),
+            "kmer_table_wire": (lambda: scan.kmer_table_wire(ix, reads, lens, max_k, wx),
                                 lambda: scan.kmer_table_wire_plain(ix, reads, lens, max_k)),
             "kmer_table_planes": (
                 lambda: scan.kmer_table_planes(pix, wx.wcache, reads, lens, max_k, ck),
@@ -1582,6 +1584,9 @@ def phase_tables(corrector, hix, items, want):
             probe[ci][0], want["kmer_freq_scan"]), max_abs_err(
             probe[ci][1], scan.kmer_freq_scan_plain(ix, reads, lens, (pp.scan_kmer_len,))[0]),
             max_abs_err(scan.kmer_freq_scan(ix, reads, lens, pool), want["kmer_freq_scan"]))
+        # the wire table from level 1 (no pyramid)
+        err["kmer_table_wire"] = max(err["kmer_table_wire"], max_abs_err(
+            scan.kmer_table_wire(ix, reads, lens, max_k), want["kmer_table_wire"]))
         del want
         full_f, full_v = scan.kmer_table_full(ix, reads, lens, max_k)
         f16, vbits = got["kmer_table_wire"]
@@ -1599,13 +1604,16 @@ def phase_tables(corrector, hix, items, want):
             continue
 
         # chunk 0: times, and the least time the card needs for the work;
-        # kmer_freq_scan's traffic from level 1 (its earlier route) and from
-        # each lane's pyramid level
+        # kmer_freq_scan's and kmer_table_wire's traffic from level 1 (their
+        # earlier routes) and from each lane's pyramid level
         rows_pool1, q_pool1, _ = rank_traffic(ix, reads, pool[-1])
         c, st_c, entries = pyramid_start(wx, reads, pool[-1], pool)
         rows_pool, q_pool, loads_pool = rank_traffic(ix, reads, pool[-1], st_c,
                                                      c.clamp(min=1))
         rows_full, q_full, _ = rank_traffic(ix, reads, max_k)
+        c, st_c, entries_w = pyramid_start(wx, reads, max_k)
+        rows_w, q_w, loads_w = rank_traffic(ix, reads, max_k, st_c, c.clamp(min=1))
+        del c, st_c
         codes = scan.plane_codes(reads, ck)
         st = wx.wcache[codes.long()]
         rows_pl, q_pl, _ = rank_traffic(ix, reads, max_k, tuple(st[..., i] for i in range(4)),
@@ -1613,14 +1621,15 @@ def phase_tables(corrector, hix, items, want):
         n_codes = int(torch.unique(codes).numel())
         io = R * L + 4 * R      # reads and lens in
         freq_from_1 = bound(io + 4 * len(pool) * R * L + rows_pool1 * 132, q_pool1 * 128)
+        wire_out = 2 * K * R * L + (K + 7) // 8 * R * L   # int16 freq, packed valid
+        wire_from_1 = bound(io + wire_out + rows_full * 132, q_full * 128)
         work = {
             # each touched index row (128 symbols + one checkpoint word)
             # read once, each pyramid entry read (16 bytes) once; ops: one
             # byte compare per symbol of a query's row
             "kmer_freq_scan": (io + 4 * len(pool) * R * L + rows_pool * 132 + entries * 16,
                                q_pool * 128),
-            "kmer_table_wire": (io + 2 * K * R * L + (K + 7) // 8 * R * L + rows_full * 132,
-                                q_full * 128),
+            "kmer_table_wire": (io + wire_out + rows_w * 132 + entries_w * 16, q_w * 128),
             # 68-byte plane rows, one 16-byte wcache entry per distinct code;
             # ops: 8 word operations per plane word of a query
             "kmer_table_planes": (io + 5 * K * R * L + rows_pl * 68 + n_codes * 16,
@@ -1637,12 +1646,20 @@ def phase_tables(corrector, hix, items, want):
             single_device_ms=round(device_ms(
                 lambda: scan.kmer_freq_single(ix, reads, lens, pp.scan_kmer_len, wx)), 4),
             bound_ms_from_level_1=freq_from_1[0])
+        rec["kmer_table_wire"].update(
+            device_ms=round(device_ms(calls["kmer_table_wire"][0]), 4),
+            device_ms_without_pyramid=round(device_ms(
+                lambda: scan.kmer_table_wire(ix, reads, lens, max_k)), 4),
+            bound_ms_from_level_1=wire_from_1[0])
+        rec["kmer_table_planes"].update(
+            device_ms=round(device_ms(calls["kmer_table_planes"][0]), 4))
         shape = dict(R=R, L=L, K=K, ck=ck, pool=pool, chunks=len(chunks),
-                     rows=dict(pool=rows_pool, pool_from_level_1=rows_pool1, full=rows_full,
-                               planes=rows_pl),
-                     queries=dict(pool=q_pool, pool_from_level_1=q_pool1, full=q_full,
-                                  planes=q_pl),
+                     rows=dict(pool=rows_pool, pool_from_level_1=rows_pool1, wire=rows_w,
+                               full_from_level_1=rows_full, planes=rows_pl),
+                     queries=dict(pool=q_pool, pool_from_level_1=q_pool1, wire=q_w,
+                                  full_from_level_1=q_full, planes=q_pl),
                      pool_row_loads=loads_pool, pool_pyramid_entries=entries,
+                     wire_row_loads=loads_w, wire_pyramid_entries=entries_w,
                      wcache_entries=n_codes)
         del got
     # plane_rows: one launch per strand, times and bound on the RBWT
@@ -2436,15 +2453,35 @@ def in_process_shards(wx, pool, bcfg, e, cov):
     return out
 
 
+def global_counter_sum_on_card(distributed, counters):
+    """distributed.global_counter_sum(counters) with its default device,
+    and the device type of every tensor it all-reduced."""
+    import torch
+
+    seen, real = [], torch.distributed.all_reduce
+
+    def spy(t, *a, **k):
+        seen.append(t.device.type)
+        return real(t, *a, **k)
+
+    torch.distributed.all_reduce = spy
+    try:
+        return distributed.global_counter_sum(counters), seen
+    finally:
+        torch.distributed.all_reduce = real
+
+
 def phase_multigpu(wx, corrector, pool):
     """entry.dryrun_multigpu over every card, launch counts reset just
     before; then phase 5's 512-lane batch sharded over the process group
     against the unsharded walk, every rank's shard at world sizes 2 and 4
-    walked in this process (in_process_shards), and a 13-float
-    all_reduce's device time.
+    walked in this process (in_process_shards), a 13-float
+    all_reduce's device time, and global_counter_sum reducing on the card
+    by default.
     Returns the all_reduce's device ms."""
     from dataclasses import replace
 
+    import numpy as np
     import torch
 
     from longreadselfcorrect_tpu_torch import entry
@@ -2479,6 +2516,10 @@ def phase_multigpu(wx, corrector, pool):
         ar_ev = time_ms(lambda: torch.distributed.all_reduce(x, group=group))
         total = mesh.all_reduce_counters(group, torch.ones((1, 13), device=dev))
         check(bool((total == 1).all()), "multigpu: the counter all-reduce is not the sum")
+        counters = np.arange(13, dtype=np.float64) * 1.5 + 2.0 ** 40
+        summed, on = global_counter_sum_on_card(distributed, counters)
+        check(on == ["cuda"] and np.array_equal(summed, counters),
+              f"multigpu: global_counter_sum reduced on {on}, or is not the sum")
         backend = torch.distributed.get_backend(group)
     finally:
         distributed.shutdown()
@@ -2487,7 +2528,7 @@ def phase_multigpu(wx, corrector, pool):
         f"sharded_multistep on the {WALK_BATCH}-lane batch equal to walk_steps (codes "
         f"{sorted(set(ref.code.tolist()))}); every rank's shard walked in this process "
         f"{json.dumps(shards)}; all_reduce of 13 floats {ar_dev:.4f} device ms, "
-        f"{ar_ev:.4f} event ms")
+        f"{ar_ev:.4f} event ms; global_counter_sum on the card equal to its input")
     return ar_dev
 
 

@@ -203,7 +203,7 @@ class BatchedSelfCorrector(SelfCorrector):
     def _seed_table_chunks(self, items):
         """Per-position (k, pos) freq/valid tables for the host seed scan
         (search_seeds' freq_table/valid_table), one kmer_table_wire launch
-        per chunk.  Every chunk is launched before any is read back, so the
+        per chunk, from the walk index's pyramid.  Every chunk is launched before any is read back, so the
         device computes chunk k+1 while chunk k crosses to the host.
         Yields (base, chunk, freq int32 [K, n, L], valid bool [K, n, L],
         lens [n]) for the chunk's n reads, K = min(kmer_len_up_bound+1,
@@ -212,7 +212,8 @@ class BatchedSelfCorrector(SelfCorrector):
         submitted = []
         for base, chunk, mat, lens in self._seed_chunks(items):
             handle = scan.kmer_table_wire(self.dix, torch.from_numpy(mat).to(self.device),
-                                          torch.from_numpy(lens).to(self.device), max_k)
+                                          torch.from_numpy(lens).to(self.device), max_k,
+                                          self.wx)
             submitted.append((base, chunk, handle, lens))
         for base, chunk, (freq, vbits), lens in submitted:
             # int16 and bit-packed across the link, widened here so that the

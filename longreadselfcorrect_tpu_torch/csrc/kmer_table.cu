@@ -17,34 +17,37 @@
 // the full table, * 2.125 for the wire table, len(pool) * R * L * 4 for
 // the pool.
 //
-// Design: one thread per lane holds its four interval ends in registers
-// and walks k = 1..max_k, so the only memory traffic is the rank rows and
-// the coalesced table writes (consecutive threads = consecutive positions).
-// The wire kernel clips and packs in registers: no int32 table exists in
-// between.  Blocks and checkpoints stay two arrays, not one fused row as on
-// the TPU: the TPU fused them to save a gather per query, while here a
-// query reads the checkpoint word as one extra 32-byte sector either way,
-// and a fused copy would double the index's device memory.
-// Row 0 is the JAX table's constant level 0 (freq -1, valid false).
+// Design: kmer_table_full and kmer_freq_scan run one thread per lane, its
+// four interval ends in registers, k = 1..max_k, so the only memory
+// traffic is the rank rows and the coalesced table writes (consecutive
+// threads = consecutive positions).  Blocks and checkpoints stay two
+// arrays, not one fused row as on the TPU: the TPU fused them to save a
+// gather per query, while here a query reads the checkpoint word as one
+// extra 32-byte sector either way, and a fused copy would double the
+// index's device memory.  Row 0 is the JAX table's constant level 0 (freq
+// -1, valid false).
 //
-// kmer_table_full, the main path's table, and kmer_freq_scan start each
-// lane from the interval-table pyramid of the walk index (ops/walk.py
-// get_tables: the interval of every j-mer for j = 1..ck, ck = 12 at the
-// bench scale): where reads[pos : pos+c] is ACGT, level j <= c is one
-// independent 16-byte load keyed by the j-mer's 2-bit code, so the
-// ladder's first c - 1 dependent LF steps (four rank queries each) are
-// gone.  From level c on the lane runs the ladder, both strands' steps in
-// one round of loads, one index row for both ends where they share a block
-// (rank.cuh update_interval_shared).  Those levels, where a surviving
-// lane's rows are its own, take most of the time (PERF.md).  kmer_freq_scan
-// loads only its pool's levels up to c, steps no level past the pool's top
-// or the read's end, and runs ladder.cuh's step.  Without a pyramid (ck =
-// 0) every lane runs the ladder from level 1.
+// All three start each lane from the interval-table pyramid of the walk
+// index (ops/walk.py get_tables: the interval of every j-mer for j =
+// 1..ck, ck = 12 at the bench scale): where reads[pos : pos+c] is ACGT,
+// level j <= c is one independent 16-byte load keyed by the j-mer's 2-bit
+// code, so the ladder's first c - 1 dependent LF steps (four rank queries
+// each) are gone.  From level c on kmer_table_full runs the ladder, both
+// strands' steps in one round of loads, one index row for both ends where
+// they share a block (rank.cuh update_interval_shared).  Those levels,
+// where a surviving lane's rows are its own, take most of the time
+// (PERF.md).  kmer_freq_scan loads only its pool's levels up to c, steps no
+// level past the pool's top or the read's end, and runs ladder.cuh's step.
+// The wire kernel steps the levels past c on lane_list.cuh's compacted
+// list of live lanes, whole warps of them, and clips and packs in the
+// owners' registers: no int32 table exists in between.  Without a pyramid
+// (ck = 0) every lane starts at level 1.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "ladder.cuh"
+#include "lane_list.cuh"
 
 namespace {
 
@@ -95,14 +98,14 @@ __device__ __forceinline__ const int4* level_row(const Pyramid& pyr, int j, unsi
   return j < pyr.ck ? pyr.lower + (((1u << (2 * j)) - 4u) / 3u) + code : pyr.top + code;
 }
 
-// The lane's clean prefix: its leading symbols in 1..4 inside the row, at
-// most cmax; code: their 2-bit code.
-__device__ __forceinline__ int clean_prefix(const int8_t* __restrict__ row, int p, int L,
-                                            int cmax, unsigned& code) {
+// The lane's clean prefix: the leading symbols in 1..4 of sym[0..n) (its
+// symbols from p on, n at most the row's rest); code: their 2-bit code.
+__device__ __forceinline__ int clean_prefix(const int8_t* __restrict__ sym, int n,
+                                            unsigned& code) {
   int c = 0;
   code = 0;
-  for (; c < cmax && p + c < L; ++c) {
-    const int s = row[p + c];
+  for (; c < n; ++c) {
+    const int s = sym[c];
     if (s < 1 || s > 4) break;
     code = (code << 2) | (unsigned)(s - 1);
   }
@@ -155,7 +158,7 @@ __global__ void kmer_table_full_kernel(lrsc::BlockRank fwd, lrsc::BlockRank rev,
   if (max_k < 1) return;
   // c: the lane's clean prefix, at most ck and max_k
   unsigned code;
-  const int c = clean_prefix(ln.row, ln.p, L, min(pyr.ck, max_k), code);
+  const int c = clean_prefix(ln.row + ln.p, min(min(pyr.ck, max_k), L - ln.p), code);
   // levels 1..c: one independent load each
   lrsc::BiInterval st = ln.st;  // level 1 by init_bi when c = 0
 #pragma unroll 4
@@ -171,26 +174,79 @@ __global__ void kmer_table_full_kernel(lrsc::BlockRank fwd, lrsc::BlockRank rev,
   }
 }
 
-__global__ void kmer_table_wire_kernel(lrsc::BlockRank fwd, lrsc::BlockRank rev,
-                                       const int8_t* __restrict__ reads,
-                                       const int* __restrict__ lens, int R, int L,
-                                       int max_k, int16_t* __restrict__ freq,
-                                       uint8_t* __restrict__ vbits) {
-  Lane ln;
-  if (!lane_of(fwd, rev, reads, lens, R, L, ln)) return;
-  const size_t plane = (size_t)R * L;
-  freq[ln.id] = -1;
-  unsigned byte = 0;  // row 0 is never valid: bit 0 of byte 0 stays clear
-  if (max_k == 0) vbits[ln.id] = 0;
-  lrsc::ladder(fwd, rev, ln.row, ln.p, L, ln.len, 1, max_k, ln.st,
-               [&](int j, bool fake, const lrsc::BiInterval& s) {
-                 freq[j * plane + ln.id] = fake ? (int16_t)-1 : (int16_t)min(s.size(), 32767);
-                 if (!fake && s.valid()) byte |= 1u << (j & 7);
-                 if ((j & 7) == 7 || j == max_k) {
-                   vbits[(j >> 3) * plane + ln.id] = (uint8_t)byte;
-                   byte = 0;
-                 }
-               });
+// The wire table's rows of one owned lane: int16 freq clipped at 32767,
+// and the valid bits of each lane's 8-level group in a register until its
+// last level (or max_k), bit b of byte g = row 8g + b.
+struct WireOut {
+  int16_t* __restrict__ freq;
+  uint8_t* __restrict__ vbits;
+  size_t plane;
+  int max_k;
+  unsigned bits;  // byte i: owned lane i's pending group
+
+  __device__ __forceinline__ void row(int i, size_t lane, int j, int f, bool v) {
+    freq[j * plane + lane] = (int16_t)min(f, 32767);
+    if (v) bits |= 1u << (8 * i + (j & 7));
+    if ((j & 7) == 7 || j == max_k) {
+      vbits[(j >> 3) * plane + lane] = (uint8_t)(bits >> (8 * i));
+      bits &= ~(0xffu << (8 * i));
+    }
+  }
+};
+
+// kmer_table_wire: kmer_table_full's rows in wire format.  Each owned
+// lane's rows up to its clean prefix c (at most ck and max_k) from the
+// pyramid, as kmer_table_full reads them, or row 1 by init_bi when c = 0;
+// past them the compacted ladder of lane_list.cuh.  ck = 0: every lane
+// from level 1.
+__global__ void __launch_bounds__(lrsc::kListThreads)
+    kmer_table_wire_kernel(lrsc::BlockRank fwd, lrsc::BlockRank rev, Pyramid pyr,
+                           const int8_t* __restrict__ reads, const int* __restrict__ lens,
+                           int R, int L, int max_k, int16_t* __restrict__ freq,
+                           uint8_t* __restrict__ vbits) {
+  __shared__ lrsc::LaneList sh;
+  const size_t lanes = (size_t)R * L, base = (size_t)blockIdx.x * lrsc::kListLanes;
+  WireOut out{freq, vbits, lanes, max_k, 0u};
+  lrsc::Owned own;
+  lrsc::list_begin(sh, max_k, reads, base, lanes);
+  __syncthreads();
+  const int cmax = min(pyr.ck, max_k);
+#pragma unroll
+  for (int i = 0; i < lrsc::kOwned; ++i) {
+    const int id = lrsc::kListThreads * i + (int)threadIdx.x;
+    const size_t lane = base + id;
+    own.s[i] = 0;
+    if (lane >= lanes) continue;
+    const int r = (int)(lane / L), p = (int)(lane - (size_t)r * L);
+    const int lim = __ldg(lens + r) - p;
+    out.row(i, lane, 0, -1, false);
+    if (max_k < 1) continue;
+    // the clean prefix c from the staged symbols (the rule written out
+    // here, every symbol read before any test, ran 5% slower from the
+    // pyramid and 7% faster from level 1: PERF.md §6 row 7), then its
+    // levels' pyramid entries, all loads issued together
+    unsigned code;
+    const int c = clean_prefix(sh.sym + id, min(cmax, L - p), code);
+    lrsc::BiInterval e[kMaxPyramid];
+#pragma unroll
+    for (int x = 0; x < kMaxPyramid; ++x)
+      if (x < c) e[x] = pyramid_level(pyr, x + 1, code, c);
+    lrsc::BiInterval st;  // level max(c, 1)
+    if (c == 0) {
+      st = lrsc::init_bi(fwd, rev, min(max((int)sh.sym[id], 0), 4));
+      out.row(i, lane, 1, 1 > lim ? -1 : st.size(), 1 <= lim && st.valid());
+    }
+#pragma unroll
+    for (int x = 0; x < kMaxPyramid; ++x) {
+      if (x < c) {
+        st = e[x];
+        out.row(i, lane, x + 1, x + 1 > lim ? -1 : st.size(), x + 1 <= lim && st.valid());
+      }
+    }
+    lrsc::list_start(sh, own, out, i, id, lane, max(c, 1), lim, st, max_k);
+  }
+  __syncthreads();
+  lrsc::list_run(fwd, rev, reads, base, max_k, sh, own, out);
 }
 
 // kmer_freq_scan: the table's rows at the pool's sizes only.  A lane stops
@@ -215,7 +271,7 @@ __global__ void kmer_freq_scan_kernel(lrsc::BlockRank fwd, lrsc::BlockRank rev, 
   const int len = __ldg(lens + r);
   const int stop = min(pool.k[pool.n - 1], len - p);
   unsigned code;
-  const int c = clean_prefix(row, p, L, min(pyr.ck, stop), code);
+  const int c = clean_prefix(row + p, min(min(pyr.ck, stop), L - p), code);
   int i = 0;  // the next pool entry
   for (; i < pool.n && pool.k[i] <= c; ++i)
     freq[i * plane + lane] = pyramid_level(pyr, pool.k[i], code, c).size();
@@ -259,17 +315,24 @@ extern "C" int lrsc_kmer_table_full(const int8_t* f_blocks, const int* f_ckpt,
   return (int)cudaGetLastError();
 }
 
+// pyr_lower, pyr_top, ck: as for lrsc_kmer_table_full.
 extern "C" int lrsc_kmer_table_wire(const int8_t* f_blocks, const int* f_ckpt,
                                     const int* f_C, int f_nb, const int8_t* r_blocks,
                                     const int* r_ckpt, const int* r_C, int r_nb,
+                                    const int* pyr_lower, const int* pyr_top, int ck,
                                     const int8_t* reads, const int* lens, int R,
                                     int L, int max_k, int16_t* freq, uint8_t* vbits,
                                     void* stream) {
-  if (grid(R, L) > 0) {
-    kmer_table_wire_kernel<<<grid(R, L), kThreads, 0, (cudaStream_t)stream>>>(
+  if (ck < 0 || ck > kMaxPyramid || max_k < 0) return (int)cudaErrorInvalidValue;
+  const size_t blocks = ((size_t)R * L + lrsc::kListLanes - 1) / lrsc::kListLanes;
+  if (blocks > 0) {
+    kmer_table_wire_kernel<<<(unsigned)blocks, lrsc::kListThreads, 0,
+                             (cudaStream_t)stream>>>(
         lrsc::BlockRank{f_blocks, f_ckpt, f_C, f_nb},
-        lrsc::BlockRank{r_blocks, r_ckpt, r_C, r_nb}, reads, lens, R, L, max_k, freq,
-        vbits);
+        lrsc::BlockRank{r_blocks, r_ckpt, r_C, r_nb},
+        Pyramid{reinterpret_cast<const int4*>(pyr_lower),
+                reinterpret_cast<const int4*>(pyr_top), ck},
+        reads, lens, R, L, max_k, freq, vbits);
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
-// The per-lane bi-interval ladder of the k-mer tables, shared by the kernels
-// of kmer_table.cu (kmer_freq_scan runs it from the interval-table
-// pyramid's level; kmer_table_full runs its own step loop, both strands in
-// one round of loads) and planes.cu.
+// The per-lane bi-interval ladder of the k-mer tables, run by
+// kmer_table.cu's kmer_freq_scan from the interval-table pyramid's level
+// and by planes.cu (kmer_table_full runs its own step loop, both strands
+// in one round of loads; the wire kernel steps a compacted list of lanes,
+// lane_list.cuh, with the state and the rank of this file).
 //
 // Replaces the level loop that the JAX package's ops/scan.py writes out in
 // each of kmer_freq_scan (:49-61), kmer_table_full (:124-139) and
@@ -47,6 +48,41 @@ struct BlockRank {
 
   __device__ __forceinline__ void update(int sym, int& lo, int& hi) const {
     update_interval(blocks, ckpt, C, nb, sym, lo, hi);
+  }
+  // The same step by rank.cuh update_interval_shared's rule (one row for
+  // both ends where they share a block, every load issued before any
+  // count; the same values), for lane_list.cuh: each vector is counted as
+  // a value, where update_interval_shared's choice between two arrays'
+  // elements puts them on the stack (256 bytes a thread, ptxas).  live =
+  // false leaves [lo, hi] as it is.
+  __device__ __forceinline__ void update_shared(int sym, int& lo, int& hi, bool live) const {
+    const int pa = lo, pb = hi + 1;  // prefix lengths of the two ends
+    const int qa = pa >> 7, qb = pb >> 7;
+    const int ra = pa - (qa << 7), rb = pb - (qb << 7);
+    const bool same = qa == qb;
+    const int ia = min(max(qa, 0), nb - 1), ib = min(max(qb, 0), nb - 1);
+    const uint4* rowa = reinterpret_cast<const uint4*>(blocks + (size_t)ia * kBlock);
+    const uint4* rowb = reinterpret_cast<const uint4*>(blocks + (size_t)ib * kBlock);
+    const int needa = !live ? 0 : same ? max(ra, rb) : ra;  // symbols read from row a
+    const int needb = !live || same ? 0 : rb;               // and from row b
+    const int pc = live ? __ldg(C + sym) : 0;
+    const int cka = live ? __ldg(ckpt + (size_t)ia * 5 + sym) : 0;
+    const int ckb = live && !same ? __ldg(ckpt + (size_t)ib * 5 + sym) : cka;
+    const unsigned pat = 0x01010101u * (unsigned)sym;
+    int ca = 0, cb = 0;
+#pragma unroll
+    for (int v = 0; v < kBlock / 16; ++v) {
+      const uint4 a = needa > 16 * v ? __ldg(rowa + v) : make_uint4(0u, 0u, 0u, 0u);
+      // end b counts row a's vector where it shares the row (needb = 0),
+      // and nothing where it has no symbol in this vector
+      const uint4 b = needb > 16 * v ? __ldg(rowb + v) : a;
+      ca += count_vec(a, pat, ra - 16 * v);
+      cb += count_vec(b, pat, rb - 16 * v);
+    }
+    if (live) {
+      lo = pc + cka + ca;
+      hi = pc + ckb + cb - 1;
+    }
   }
 };
 

@@ -19,7 +19,12 @@
 // wcache entry per lane.  One thread per lane (ladder.cuh): the lane packs
 // reads[p : p+ck] as 2-bit codes, first char most significant, with chars
 // past the row as code 0 and everything outside 1..4 clipped into it, as
-// ops/scan.py:294-297 does (so an N, rank 0, counts as A there).
+// ops/scan.py:294-297 does (so an N, rank 0, counts as A there).  At 32
+// registers a thread every lane of a chunk is resident at once, and the
+// time is each lane's chain of dependent rank loads: the kmer_table_wire
+// kernel's compacted lane list (lane_list.cuh) and a both-strand step that
+// reads one row for both ends (96 registers) were measured on this kernel
+// and lost to it (PERF.md §6 row 8b, tools/prof_tables.py).
 #include <cuda_runtime.h>
 
 #include <cstdint>

@@ -92,6 +92,13 @@ __device__ __forceinline__ int count_vec(const uint4& w, unsigned pat, int rem) 
 // so a step costs one round of loads (occ's guarded loop can wait for each
 // 16-byte vector in turn), and the steps of two strands can be in flight
 // together.  The same values as update_interval.
+//
+// Debt: ladder.cuh's BlockRank::update_shared is the same rule with each
+// vector counted as a value, where this one keeps its 16 vectors on a
+// 256-byte stack; on kmer_table_full it ran 0.42 -> 0.36-0.38 ms, exact
+// (PERF.md §6, tools/prof_tables.py full-regstep).  It is to replace this
+// function in kmer_table_full and walk.cuh's prep_task, which is then
+// deleted (ROADMAP.md Queue 2 item 5).
 __device__ __forceinline__ void update_interval_shared(const int8_t* __restrict__ blocks,
                                                        const int* __restrict__ ckpt,
                                                        const int* __restrict__ C, int nb,

@@ -134,11 +134,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # every C entry's arguments, the stream (last) included: an argument
 # beyond the list would pass as a 32-bit int
 _SIGNATURES = {
-    # ... the pyramid's two tables and ck before the reads
+    # ... the pyramid's two tables and ck before the reads (full and wire)
     "lrsc_kmer_table_full": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I,
                              _I, _I, _P, _P, _P],
-    "lrsc_kmer_table_wire": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                             _P, _P, _P],
+    "lrsc_kmer_table_wire": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I,
+                             _I, _I, _P, _P, _P],
     # ... the pyramid as above; the pool is a host int array
     "lrsc_kmer_freq_scan": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
                             _P, _I, _P, _P],

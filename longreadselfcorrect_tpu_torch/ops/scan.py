@@ -14,8 +14,9 @@ lockstep transcript of the JAX function, for CPU tensors:
   levels up to its first non-ACGT symbol (at most ck) read from the walk
   index's interval-table pyramid;
 * ``kmer_table_wire``   the same table as int16 freq and valid packed 8
-  k-levels per byte (csrc/kmer_table.cu); ``unpack_valid_bits`` undoes
-  the packing on the host;
+  k-levels per byte (csrc/kmer_table.cu), from the pyramid as
+  ``kmer_table_full``; ``unpack_valid_bits`` undoes the packing on the
+  host;
 * ``kmer_freq_scan``    freq for each k of a pool (csrc/kmer_table.cu), from
   the pyramid as ``kmer_table_full`` where it is given;
 * ``build_plane_rows``  the index as bit-plane rows (csrc/planes.cu);
@@ -182,23 +183,36 @@ def kmer_table_wire_plain(ix: IndexSet, reads: torch.Tensor, lengths: torch.Tens
 
 
 def kmer_table_wire(ix: IndexSet, reads: torch.Tensor, lengths: torch.Tensor,
-                    max_k: int):
+                    max_k: int, levels=None):
     """kmer_table_full in wire format for the host seed scan: freq as int16
     (clipped at 32767; the dynamic-kmer thresholds top out around ~700) and
     valid packed 8 k-levels per byte, bit b of byte g = row 8g + b.
     Returns (freq int16 [K, R, L], vbits uint8 [ceil(K/8), R, L]), K = max_k+1.
+    levels: the walk index over ix, as for kmer_table_full; None runs every
+    lane's ladder from level 1.  The table is the same either way.
     """
     if not reads.is_cuda:
         return kmer_table_wire_plain(ix, reads, lengths, max_k)
-    name = "kmer_table_wire"
     R, L = reads.shape
-    args = _index_args(name, ix, reads) + _read_args(name, reads, lengths)
     K = max_k + 1
     freq = torch.empty((K, R, L), dtype=torch.int16, device=reads.device)
     vbits = torch.empty(((K + 7) // 8, R, L), dtype=torch.uint8, device=reads.device)
-    cuda.launch(name, "lrsc_kmer_table_wire", *args, max_k, freq.data_ptr(),
-                vbits.data_ptr())
+    cuda.launch("kmer_table_wire", "lrsc_kmer_table_wire",
+                *kmer_table_wire_args(ix, reads, lengths, max_k, levels, freq, vbits))
     return freq, vbits
+
+
+def kmer_table_wire_args(ix: IndexSet, reads, lengths, max_k: int, levels, freq, vbits,
+                         on_card: bool = True) -> list:
+    """The arguments of lrsc_kmer_table_wire but the stream (on_card=False
+    takes CPU tensors: the C entry compiled for the host, in the tests)."""
+    name = "kmer_table_wire"
+    K = max_k + 1
+    R, L = reads.shape
+    out = [cuda.check(name, freq, torch.int16, (K, R, L), on_card=on_card),
+           cuda.check(name, vbits, torch.uint8, ((K + 7) // 8, R, L), on_card=on_card)]
+    return (_index_args(name, ix, reads, on_card) + _pyramid_args(name, levels, reads, on_card)
+            + _read_args(name, reads, lengths, on_card) + [max_k] + out)
 
 
 def unpack_valid_bits(vbits: np.ndarray, n_k: int) -> np.ndarray:
@@ -316,16 +330,24 @@ def build_plane_rows(blocks: torch.Tensor, ckpt: torch.Tensor) -> torch.Tensor:
     word w of plane i is bit i of symbol 32w + j, then the 5 counts."""
     if not blocks.is_cuda:
         return build_plane_rows_plain(blocks, ckpt)
+    out = torch.empty((blocks.shape[0], PLANE_ROW), dtype=I32, device=blocks.device)
+    cuda.launch("plane_rows", "lrsc_plane_rows", *plane_rows_args(blocks, ckpt, out))
+    return out
+
+
+def plane_rows_args(blocks: torch.Tensor, ckpt: torch.Tensor, out: torch.Tensor,
+                    on_card: bool = True) -> list:
+    """The arguments of lrsc_plane_rows but the stream (on_card=False takes
+    CPU tensors: the C entry compiled for the host, in the tests)."""
     name = "plane_rows"
     nb = blocks.shape[0]
     if tuple(blocks.shape) != (nb, 128):
         raise ValueError(f"{name}: the kernel takes 128-symbol blocks, got {tuple(blocks.shape)}")
     if blocks.data_ptr() % 16:
         raise ValueError(f"{name}: blocks must be 16-byte aligned")
-    out = torch.empty((nb, PLANE_ROW), dtype=I32, device=blocks.device)
-    cuda.launch(name, "lrsc_plane_rows", cuda.check(name, blocks, torch.int8),
-                cuda.check(name, ckpt, I32, (nb, 5)), nb, out.data_ptr())
-    return out
+    return [cuda.check(name, blocks, torch.int8, on_card=on_card),
+            cuda.check(name, ckpt, I32, (nb, 5), on_card=on_card), nb,
+            cuda.check(name, out, I32, (nb, PLANE_ROW), on_card=on_card)]
 
 
 def _plane_fm(fm: FMIndex) -> PlaneFM:
@@ -436,6 +458,18 @@ def kmer_table_planes(pix: PlaneIndexSet, wcache: torch.Tensor, reads: torch.Ten
     """
     if not reads.is_cuda:
         return kmer_table_planes_plain(pix, wcache, reads, lengths, max_k, ck)
+    R, L = reads.shape
+    freq = torch.empty((max_k + 1, R, L), dtype=I32, device=reads.device)
+    valid = torch.empty((max_k + 1, R, L), dtype=torch.bool, device=reads.device)
+    cuda.launch("kmer_table_planes", "lrsc_kmer_table_planes",
+                *kmer_table_planes_args(pix, wcache, reads, lengths, max_k, ck, freq, valid))
+    return freq, valid
+
+
+def kmer_table_planes_args(pix: PlaneIndexSet, wcache, reads, lengths, max_k: int, ck: int,
+                           freq, valid, on_card: bool = True) -> list:
+    """The arguments of lrsc_kmer_table_planes but the stream (on_card=False
+    takes CPU tensors: the C entry compiled for the host, in the tests)."""
     name = "kmer_table_planes"
     if not 1 <= ck <= min(max_k, 15):
         raise ValueError(f"{name}: the kernel takes 1 <= ck <= min(max_k, 15), got "
@@ -445,17 +479,15 @@ def kmer_table_planes(pix: PlaneIndexSet, wcache: torch.Tensor, reads: torch.Ten
         if pf.block != 128:
             raise ValueError(f"{name}: the kernel takes 128-symbol blocks, got {pf.block}")
         nb = pf.prows.shape[0]
-        args += [cuda.check(name, pf.prows, I32, (nb, PLANE_ROW)),
-                 cuda.check(name, pf.C, I32, (6,)), nb]
+        args += [cuda.check(name, pf.prows, I32, (nb, PLANE_ROW), on_card=on_card),
+                 cuda.check(name, pf.C, I32, (6,), on_card=on_card), nb]
         if pf.prows.device != reads.device:
             raise ValueError(f"{name}: reads on {reads.device}, index on {pf.prows.device}")
     if wcache.data_ptr() % 16:
         raise ValueError(f"{name}: wcache must be 16-byte aligned")
+    K = max_k + 1
     R, L = reads.shape
-    freq = torch.empty((max_k + 1, R, L), dtype=I32, device=reads.device)
-    valid = torch.empty((max_k + 1, R, L), dtype=torch.bool, device=reads.device)
-    cuda.launch(name, "lrsc_kmer_table_planes", *args,
-                cuda.check(name, wcache, I32, (4 ** ck, 4)), ck,
-                *_read_args(name, reads, lengths), max_k, freq.data_ptr(),
-                valid.data_ptr())
-    return freq, valid
+    return (args + [cuda.check(name, wcache, I32, (4 ** ck, 4), on_card=on_card), ck]
+            + _read_args(name, reads, lengths, on_card) + [max_k]
+            + [cuda.check(name, t, dt, (K, R, L), on_card=on_card)
+               for t, dt in ((freq, I32), (valid, torch.bool))])

@@ -64,6 +64,9 @@ def rank_device(process_id: int, device: str) -> torch.device:
     CPU."""
     if device == "cpu":
         return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"rank {process_id}: device {device!r} asked for, but there is "
+                           "no CUDA card")
     dev = torch.device("cuda", process_id % torch.cuda.device_count())
     torch.cuda.set_device(dev)
     return dev
@@ -139,13 +142,15 @@ def kv_counter_sum(counters: np.ndarray, num_processes: int, process_id: int,
     return total
 
 
-def global_counter_sum(counters: np.ndarray, device="cpu") -> np.ndarray:
+def global_counter_sum(counters: np.ndarray, device="cuda") -> np.ndarray:
     """Sum a per-process counter vector across every process (the metrics
     reduction of the reference's PostProcess sink): an all-reduce over
-    mesh.make_group's group, on device's backend."""
+    mesh.make_group's group, on this rank's card (rank_device: NCCL) unless
+    device is "cpu" (gloo)."""
     from .mesh import make_group  # mesh imports this module
 
-    group = make_group(device)
-    t = torch.as_tensor(np.asarray(counters, np.float64), device=device).clone()
+    dev = rank_device(joined()[2], device)
+    group = make_group(dev)
+    t = torch.as_tensor(np.asarray(counters, np.float64), device=dev).clone()
     torch.distributed.all_reduce(t, group=group)
     return t.cpu().numpy()

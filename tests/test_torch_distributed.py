@@ -47,7 +47,7 @@ WORKER = textwrap.dedent("""
         for i in range(lo, hi):
             fh.write(f">r{i}\\n{reads[i]}\\n")
 
-    total = dist.global_counter_sum(np.array([hi - lo, 1.0]))
+    total = dist.global_counter_sum(np.array([hi - lo, 1.0]), device="cpu")
     assert total.tolist() == [len(reads), nproc], total
     # the store's counter sum is also the barrier before the rank-0 merge
     summed = dist.kv_counter_sum(np.array([hi - lo, rank + 0.5]), nproc, rank)
@@ -88,6 +88,25 @@ def test_two_process_ordered_merge(tmp_path):
     ids = [line[1:].strip() for line in merged.splitlines() if line.startswith(">")]
     assert ids == [f"r{i}" for i in range(17)]
     assert not [p for p in os.listdir(tmp_path) if ".part" in p]
+
+
+def test_global_counter_sum_runs_on_the_card_by_default():
+    """Without device=, global_counter_sum reduces on the rank's card, as
+    its JAX twin reduces over jax.devices(): with no card it raises instead
+    of summing on the CPU; device="cpu" sums with gloo."""
+    import torch
+
+    from longreadselfcorrect_tpu_torch.parallel import distributed as dist
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default would reduce with NCCL")
+    dist.init(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            dist.global_counter_sum(np.array([3.0, 1.0]))
+        assert dist.global_counter_sum(np.array([3.0, 1.0]), device="cpu").tolist() == [3.0, 1.0]
+    finally:
+        dist.shutdown()
 
 
 def test_save_atomic_keeps_a_whole_file(tmp_path):

@@ -80,7 +80,7 @@ WORKER = textwrap.dedent("""
             res[f"{setup}{G}_{f}"] = getattr(sh, f).numpy()
     block = torch.arange(8, dtype=torch.float32).reshape(2, 4)[rank : rank + 1]
     res["counters"] = mesh.all_reduce_counters(group, block).numpy()
-    res["global"] = dist.global_counter_sum(np.array([rank + 1.0, 2.0]))
+    res["global"] = dist.global_counter_sum(np.array([rank + 1.0, 2.0]), device="cpu")
     np.savez(f"{out}.{rank}.npz", **res)
     dist.shutdown()
 """)

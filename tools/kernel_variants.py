@@ -29,8 +29,9 @@ def device_ms(fn, reps=7):
 
 
 def variant(out, name, sources, edits, csrc=None):
-    """out/<name>/ holding `sources` of csrc (default: the package's
-    csrc/) after the edits ((file, old, new), each old present)."""
+    """out/<name>/ holding those of `sources` that csrc (default: the
+    package's csrc/) has, after the edits ((file, old, new), each old
+    present)."""
     if csrc is None:
         from longreadselfcorrect_tpu_torch.ops import cuda
 
@@ -38,6 +39,9 @@ def variant(out, name, sources, edits, csrc=None):
     d = os.path.join(out, name)
     os.makedirs(d, exist_ok=True)
     for f in sources:
+        if not os.path.exists(os.path.join(csrc, f)):
+            assert not any(ef == f for ef, _, _ in edits), (name, f)
+            continue
         with open(os.path.join(csrc, f)) as fh:
             text = fh.read()
         for ef, old, new in edits:
