@@ -100,10 +100,6 @@ exits non-zero without the final result line):
             crossover that sets the gates of core/msa.py; both routes of
             build_multiple_alignment on DP fallbacks of the path, consensus
             equal
-11. trace   one more pass over the 256 noisy reads under torch.profiler:
-            the device's busy share of each corrector phase, device ms by
-            kernel and each kernel's launches in the pass; then one pass
-            over the 15%-error reads (trace-dp), the same
 12. throughput  the stream over the 2048 further reads, tables warm, four
             times: the DP fallback's loops in numpy, on the card, on the
             card, in numpy; the outputs equal; the seed kernels' launches
@@ -2123,69 +2119,6 @@ def phase_msa(hix, dix, calls, fills8):
     return rec
 
 
-def busy_us(spans, a, b) -> float:
-    """Microseconds of [a, b] covered by the union of the spans."""
-    total, end = 0.0, a
-    for s, e in spans:
-        s, e = max(s, end), min(e, b)
-        if e > s:
-            total += e - s
-            end = e
-    return total
-
-
-def phase_trace(hix, wx, params, items, label="trace", kernels=()):
-    """One pass over items under torch.profiler: the device's busy share
-    of the pass and of each corrector phase, the device time of each
-    kernel, and the device ms and launches of each of `kernels`."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from longreadselfcorrect_tpu_torch.core.batch_correct import BatchedSelfCorrector
-
-    corrector = BatchedSelfCorrector(hix, wx, params)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with torch.profiler.record_function("pbcorrect.pass"):
-            run_stream(corrector, items)
-            torch.cuda.synchronize()
-    events = prof.events()
-    # kernels and copies; not the ranges' own device-side annotations
-    dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
-                 if e.device_type == DeviceType.CUDA
-                 and not e.name.startswith("pbcorrect."))
-    spans = [(s, e) for s, e, _ in dev]
-    ranges = {}
-    for e in events:
-        if e.device_type == DeviceType.CPU and e.name.startswith("pbcorrect."):
-            ranges.setdefault(e.name[len("pbcorrect."):], []).append(
-                (e.time_range.start, e.time_range.end))
-    if not dev:
-        say(f"{label}: the profiler recorded no device activity: busy share not measured")
-        return
-    out = {}
-    for name, rs in ranges.items():
-        wall = sum(b - a for a, b in rs)
-        busy = sum(busy_us(spans, a, b) for a, b in rs)
-        out[name] = dict(wall_s=round(wall / 1e6, 4), device_busy_s=round(busy / 1e6, 4),
-                         busy_share=round(busy / wall, 4) if wall else None)
-    per = {}
-    for s, e, n in dev:
-        per[n] = per.get(n, 0.0) + (e - s)
-    top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
-    chosen = {}
-    for k in kernels:
-        hits = [(e - s) for s, e, n in dev if f"{k}_kernel" in n]
-        if hits:
-            chosen[k] = dict(ms=round(sum(hits) / 1e3, 3), launches=len(hits))
-    say(f"{label}: {len(items)} reads, device activity per phase "
-        f"(host wall, device busy = union of kernels and copies): {json.dumps(out)}; "
-        f"device ms by name: "
-        f"{json.dumps({n[:60]: round(t / 1e3, 3) for n, t in top})}"
-        + (f"; {json.dumps(chosen)}" if kernels else ""))
-
-
 def phase_throughput(hix, wx, params, extra):
     """Steady-state throughput: the tables already built, process_stream
     over the further noisy reads, with the DP fallback's LF extraction and
@@ -2862,12 +2795,6 @@ def main() -> int:
     rec["walk_prep"]["max_abs_err"] = max([rec["walk_prep"]["err"]]
                                           + [r["err"] for r in prep8 + prep9])
     rec.update(phase_msa(hix, dix, calls, fills8))
-    t0 = time.perf_counter()
-    phase_trace(hix, wx, params, items, "trace", tuple(KERNEL_INFO))
-    say(f"trace: in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    phase_trace(hix, wx, params, dp, "trace-dp", tuple(KERNEL_INFO))
-    say(f"trace-dp: in {time.perf_counter() - t0:.1f}s")
     turn = phase_throughput(hix, wx, params, extra)
     rec["walk_steps"]["max_abs_err"] = max([rec["walk_steps_one"]["err"],
                                             rec["walk_steps_all"]["err"]]

@@ -37,6 +37,9 @@ QUEUE_BANK = 8192  # tasks per queue-engine bank
 MISS_ROUNDS = 6    # replay rounds; misses of the last go to the host engine
 MISS_FLUSH = 256   # misses that start a device round during a replay
 MISS_CHUNK = 512   # tasks per submitted miss round
+# phase_times' keys: the three phases, and three spans inside the replay
+# that never run inside one another
+PHASES = ("seed", "walks", "replay", "replay.host_engine", "replay.dp", "replay.rounds")
 
 
 class BatchedSelfCorrector(SelfCorrector):
@@ -73,14 +76,24 @@ class BatchedSelfCorrector(SelfCorrector):
         self.cfg_deep = replace(self.cfg_big, G=64, KMAX=52)
         self.cfg_dense = replace(self.cfg_huge, SLAB=False, G=32)
         self._prefetch: dict = {}
+        self._flag_why: dict = {}    # gap key -> walk.FLAG_REASONS entry of a -100
+        self._host_walked: set = set()   # gap keys the host engine walked this batch
         # the DP/MSA fallback runs its LF extraction and banded DP fills on
         # the device (core/msa.py dev= route -> ops/msa_kernels)
         self.msa_dev = self.dix
         self._misses = None
         self._read_incomplete = False
+        # counters, summed over the corrector's life (a flat dict of numbers):
+        # gap lookups (hits, misses, host fallbacks by cause, the flagged ones
+        # by the card's reason fl_*), the host engine's calls, failures
+        # (code < 0) and repeats of a gap key in one batch, the DP seconds of
+        # replay rounds thrown away, and the miss rounds and their tasks
         self.stats = {"prefetch_hit": 0, "prefetch_miss": 0, "host_fallback": 0,
-                      "fb_unfit": 0, "fb_flagged": 0, "fb_lastround": 0, "gaps": 0}
-        self.phase_times = {"seed": 0.0, "walks": 0.0, "replay": 0.0}
+                      "fb_unfit": 0, "fb_flagged": 0, "fb_lastround": 0, "gaps": 0,
+                      **{"fl_" + r: 0 for r in walk.FLAG_REASONS},
+                      "he_calls": 0, "he_fail": 0, "he_repeat": 0,
+                      "dp_discarded_s": 0.0, "miss_rounds": 0, "miss_tasks": 0}
+        self.phase_times = dict.fromkeys(PHASES, 0.0)
 
     # ------------------------------------------------------------------
     def _seed_chunks(self, items):
@@ -410,12 +423,16 @@ class BatchedSelfCorrector(SelfCorrector):
     def _collect_tasks(self, submitted) -> None:
         e, cov = self.params.error_rate, self.params.pb_coverage
         for kind, tkeys, h in submitted:
+            why: list = []
             if kind == "queue":
-                res = walk.collect_queue_batch(self.ix, self.wx, h, e, cov)
+                res = walk.collect_queue_batch(self.ix, self.wx, h, e, cov, why=why)
             else:
-                res = walk.run_gap_batch(self.ix, self.wx, h[0], h[1], e, cov, _handle=h)
-            for k, r in zip(tkeys, res):
+                res = walk.run_gap_batch(self.ix, self.wx, h[0], h[1], e, cov, _handle=h,
+                                         why=why)
+            for k, r, w in zip(tkeys, res, why):
                 self._prefetch[k] = r
+                if w is not None:
+                    self._flag_why[k] = w
 
     # ------------------------------------------------------------------
     # replay
@@ -444,15 +461,21 @@ class BatchedSelfCorrector(SelfCorrector):
                 while miss_tasks and (force or len(miss_tasks) >= MISS_FLUSH):
                     take, tkeys = miss_tasks[:MISS_CHUNK], miss_keys[:MISS_CHUNK]
                     del miss_tasks[:MISS_CHUNK], miss_keys[:MISS_CHUNK]
-                    submitted.extend(self._submit_tasks(take, tkeys))
+                    self.stats["miss_tasks"] += len(take)
+                    with self._phase("replay.rounds"):
+                        submitted.extend(self._submit_tasks(take, tkeys))
 
             for ri in pending:
                 rid, seq, seeds = per_read[ri]
                 result = CorrectionResult(read_id=rid)
                 result.total_seed_num = len(seeds)
                 self._read_incomplete = False
+                dp0 = self.phase_times["replay.dp"]
                 pieces = self._init_correct(seq, seeds, result)
                 if self._read_incomplete:
+                    # the read is replayed: this round's result, DP included,
+                    # is thrown away
+                    self.stats["dp_discarded_s"] += self.phase_times["replay.dp"] - dp0
                     still.append(ri)
                     if self._misses is not None:
                         flush()
@@ -465,7 +488,9 @@ class BatchedSelfCorrector(SelfCorrector):
             if not still:
                 break
             flush(force=True)
-            self._collect_tasks(submitted)
+            self.stats["miss_rounds"] += 1
+            with self._phase("replay.rounds"):
+                self._collect_tasks(submitted)
             pending = still
         self._misses = None
         return out
@@ -497,13 +522,23 @@ class BatchedSelfCorrector(SelfCorrector):
             self.stats["host_fallback"] += 1
             if hit is not None:
                 self.stats["fb_flagged"] += 1
+                self.stats["fl_" + self._flag_why[key]] += 1
             elif self._misses is None:
                 self.stats["fb_lastround"] += 1
             else:
                 self.stats["fb_unfit"] += 1
-            engine = HostExtendEngine(self.ix, src, path, trg, interval, ek, ek + 2,
-                                      self.fm_params, min_sa)
-            code, wres = engine.extend()
+            self.stats["he_calls"] += 1
+            if key in self._host_walked:
+                self.stats["he_repeat"] += 1
+            self._host_walked.add(key)
+            t0 = self.phase_times["replay.host_engine"]
+            with self._phase("replay.host_engine"):
+                engine = HostExtendEngine(self.ix, src, path, trg, interval, ek, ek + 2,
+                                          self.fm_params, min_sa)
+                code, wres = engine.extend()
+            # SelfCorrector's timer_fm: the host engine's seconds
+            result.timer_fm += self.phase_times["replay.host_engine"] - t0
+            self.stats["he_fail"] += int(code < 0)
             merged = wres.merged_seq
         if code < 0:
             return code, ""
@@ -515,6 +550,12 @@ class BatchedSelfCorrector(SelfCorrector):
         result.seed_dis += interval
         result.fm_num += 1
         return code, out
+
+    def _correct_by_msa(self, source: Seed, target: Seed, read_seq: str,
+                        result: CorrectionResult):
+        """SelfCorrector's MSA/DP fallback inside the replay.dp span."""
+        with self._phase("replay.dp"):
+            return super()._correct_by_msa(source, target, read_seq, result)
 
     # ------------------------------------------------------------------
     # entry points
@@ -529,7 +570,8 @@ class BatchedSelfCorrector(SelfCorrector):
     @contextmanager
     def _phase(self, name: str):
         """Adds the block's host wall seconds to phase_times[name]; a
-        profiler sees the block as the range "pbcorrect.<name>"."""
+        profiler sees the block as the range "pbcorrect.<name>", nested in
+        the ranges open around it ("replay.dp" inside "replay")."""
         t0 = time.perf_counter()
         with torch.profiler.record_function("pbcorrect." + name):
             yield
@@ -539,6 +581,8 @@ class BatchedSelfCorrector(SelfCorrector):
         with self._phase("walks"):
             tasks, keys = self._enumerate_walks(per_read)
             self._prefetch = {}
+            self._flag_why = {}
+            self._host_walked = set()
             self._collect_tasks(self._submit_tasks(tasks, keys))
             self.stats["gaps"] += len(tasks)
         with self._phase("replay"):
@@ -558,8 +602,11 @@ class BatchedSelfCorrector(SelfCorrector):
         phase_times (host wall seconds): seed = launching the device seed
         phase and collecting its records; walks = enumerating the prefetch
         and walking it on the device; replay = the per-read workflow, its
-        miss rounds, host-engine fallbacks and the MSA/DP fallback."""
-        self.phase_times = {"seed": 0.0, "walks": 0.0, "replay": 0.0}
+        miss rounds, host-engine fallbacks and the MSA/DP fallback, of
+        which replay.host_engine = the host engine's walks, replay.dp = the
+        MSA/DP fallback (of kept and thrown-away rounds), replay.rounds =
+        the miss rounds' submits and collects."""
+        self.phase_times = dict.fromkeys(PHASES, 0.0)
         return self._walk_and_replay(self._collect_timed(self._seed_timed(items)))
 
     def process_stream(self, batches):
@@ -567,7 +614,7 @@ class BatchedSelfCorrector(SelfCorrector):
         result list per input batch, in order.  Batch k+1's seed phase is
         launched before batch k's walks, so the device computes it ahead.
         phase_times accumulate over the stream."""
-        self.phase_times = {"seed": 0.0, "walks": 0.0, "replay": 0.0}
+        self.phase_times = dict.fromkeys(PHASES, 0.0)
         batches = iter(batches)
         items = next(batches, None)
         pending = self._seed_timed(items) if items is not None else None

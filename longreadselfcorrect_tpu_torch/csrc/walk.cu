@@ -166,6 +166,7 @@ State read_state(Args& a) {
   s.res_i = a.ptr<int*>();
   s.res_count = a.ptr<int*>();
   s.res_overflow = a.ptr<bool*>();
+  s.res_hazard = a.ptr<bool*>();
   return s;
 }
 
@@ -177,6 +178,7 @@ Reduced read_reduced(Args& a) {
   r.lab = a.ptr<int8_t*>();
   r.len = a.ptr<int*>();
   r.i = a.ptr<int*>();
+  r.hazard = a.ptr<bool*>();
   return r;
 }
 

@@ -127,6 +127,7 @@ struct State {
   float* res_err;
   int *res_i, *res_count;
   bool* res_overflow;
+  bool* res_hazard;  // sticky: an f32 tie gated a threshold retry
 };
 
 struct Reduced {
@@ -136,6 +137,7 @@ struct Reduced {
   int8_t* lab;
   int* len;
   int* i;
+  bool* hazard;  // overflow raised by an f32 tie
 };
 
 __device__ __forceinline__ int floordiv(int a, int b) {
@@ -291,7 +293,7 @@ struct Walker {
   int max_length, max_overlap, min_overlap, min_sa, max_indel, q_len, min_length, n_term;
   bool no_term;
   // warp-uniform lane state
-  bool active, overflow;
+  bool active, overflow, hazard;
   int code, cur_len, cur_k, gerr_n, res_count;
   unsigned alive, owner;
 
@@ -879,6 +881,7 @@ struct Walker {
     if (success) gerr_n = n_app;
     res_count = res_count_new;
     overflow = overflow || any_over || fp_hazard;
+    hazard = hazard || fp_hazard;
   }
 
   // the label of length n whose last position was written into slot l,
@@ -927,6 +930,7 @@ struct Walker {
     if (lane == 0) {
       R.code[out] = S.code[g];
       R.overflow[out] = S.res_overflow[g];
+      R.hazard[out] = S.res_hazard[g];
       R.has[out] = has;
       R.len[out] = S.res_len[gr + best];
       R.i[out] = S.res_i[gr + best];
@@ -946,6 +950,7 @@ struct Walker {
       if (ref) result_to(to, ref);
       R.code[out] = code;
       R.overflow[out] = overflow;
+      R.hazard[out] = hazard;
       R.has[out] = has;
       R.len[out] = res_len()[best];
       R.i[out] = res_i()[best];
@@ -964,6 +969,7 @@ struct Walker {
     gerr_n = S.gerr_n[g];
     res_count = S.res_count[g];
     overflow = S.res_overflow[g];
+    hazard = S.res_hazard[g];
     alive = __ballot_sync(kFull, lane < L && S.alive[gl + lane]);
     owner = 0;
     const int base_len = clampi(cur_len, 0, cf.MAXLEN);
@@ -1066,6 +1072,7 @@ struct Walker {
       S.gerr_n[g] = gerr_n;
       S.res_count[g] = res_count;
       S.res_overflow[g] = overflow;
+      S.res_hazard[g] = hazard;
     }
     __syncwarp();
   }
@@ -1079,7 +1086,7 @@ struct Walker {
     cur_len = cur_k = ik;
     gerr_n = 1;
     res_count = 0;
-    overflow = false;
+    overflow = hazard = false;
     alive = 1u;
     owner = 0;
     const int base_len = clampi(ik, 0, cf.MAXLEN);

@@ -400,6 +400,8 @@ class WalkState:
     res_i: torch.Tensor        # i32 [G, RMAX]
     res_count: torch.Tensor    # i32 [G]
     res_overflow: torch.Tensor  # bool [G]
+    # sticky: an f32 tie gated a threshold retry (one of res_overflow's causes)
+    res_hazard: torch.Tensor   # bool [G]
 
 
 @dataclass
@@ -420,6 +422,7 @@ class Reduced:
     lab: torch.Tensor          # i8 [G, MAXLEN]
     len: torch.Tensor          # i32 [G]
     i: torch.Tensor            # i32 [G]
+    hazard: torch.Tensor       # bool [G]: overflow raised by an f32 tie
 
 
 def field_names(obj) -> list[str]:
@@ -441,7 +444,7 @@ CONST_FIELDS = (
 ROOT_FIELDS = ("f_lo", "f_hi", "r_lo", "r_hi", "freq", "chain0", "tail9",
                "tail8", "tail_letter", "tail_count")
 STATE_FIELDS = tuple(f.name for f in dataclasses.fields(WalkState))
-REDUCED_FIELDS = ("code", "overflow", "has", "lab", "len", "i")
+REDUCED_FIELDS = ("code", "overflow", "has", "lab", "len", "i", "hazard")
 
 
 # ---------------------------------------------------------------------------
@@ -711,6 +714,7 @@ def init_state(consts: WalkConsts, root: RootPack, used, cfg: WalkConfig) -> Wal
         res_i=zeros(G, cfg.RMAX),
         res_count=zeros(G),
         res_overflow=zeros(G, dtype=torch.bool),
+        res_hazard=zeros(G, dtype=torch.bool),
     )
 
 
@@ -1110,6 +1114,7 @@ def superstep_plain(wx: WalkIndex, consts: WalkConsts, state: WalkState,
                        torch.where(t_found, c_res_first - 1, -1))
     fp_hazard = run & (hazA | (hazBC & need_l1))
     res_overflow = s.res_overflow | (slot >= cfg.RMAX).any(dim=1) | fp_hazard
+    res_hazard = s.res_hazard | fp_hazard
     writer = t_found & (slot >= 0) & (slot < cfg.RMAX)
     c_res_first = torch.where(is_new_res, slot + 1, c_res_first)
     c_res_second = torch.where(t_found, imax, c_res_second)
@@ -1222,6 +1227,7 @@ def superstep_plain(wx: WalkIndex, consts: WalkConsts, state: WalkState,
         res_i=torch.where(rs, res_i, s.res_i),
         res_count=torch.where(run, res_count, s.res_count),
         res_overflow=torch.where(run, res_overflow, s.res_overflow),
+        res_hazard=torch.where(run, res_hazard, s.res_hazard),
     )
 
 
@@ -1238,7 +1244,7 @@ def reduce_results_plain(state: WalkState, cfg: WalkConfig) -> Reduced:
     blen = torch.gather(state.res_len, 1, best[:, None])[:, 0]
     bi = torch.gather(state.res_i, 1, best[:, None])[:, 0]
     return Reduced(code=state.code.clone(), overflow=state.res_overflow.clone(),
-                   has=has, lab=lab, len=blen, i=bi)
+                   has=has, lab=lab, len=blen, i=bi, hazard=state.res_hazard.clone())
 
 
 # ---------------------------------------------------------------------------
@@ -1280,7 +1286,8 @@ def _reduced_empty(G: int, cfg: WalkConfig, dev) -> Reduced:
         has=torch.zeros(G, dtype=torch.bool, device=dev),
         lab=torch.full((G, cfg.MAXLEN), ab.PAD_RANK, dtype=I8, device=dev),
         len=torch.zeros(G, dtype=I32, device=dev),
-        i=torch.zeros(G, dtype=I32, device=dev))
+        i=torch.zeros(G, dtype=I32, device=dev),
+        hazard=torch.zeros(G, dtype=torch.bool, device=dev))
 
 
 def walk_steps_plain(wx: WalkIndex, consts: WalkConsts, state: WalkState,
@@ -1615,19 +1622,41 @@ def submit_gap_batch(wx: WalkIndex, tasks, cfg: WalkConfig,
 
 def run_gap_batch(host_ix, wx: WalkIndex, tasks, cfg: WalkConfig,
                   pacbio_error_rate: float, pb_coverage: int,
-                  max_steps: int = 4096, _handle=None):
+                  max_steps: int = 4096, _handle=None, why: list | None = None):
     """[(code, merged_seq)] of a batch of GapTasks, -100 where the host
     engine must replay (flagged, or not converged in max_steps); -200 and
-    -300 lanes are re-run in the wide and the dense config."""
+    -300 lanes are re-run in the wide and the dense config.  why, if
+    given, is extended by one entry per task: the FLAG_REASONS entry of a
+    -100 (of the task's last run), None for any other code."""
     if _handle is None:
         _handle = submit_gap_batch(wx, tasks, cfg, pacbio_error_rate,
                                    pb_coverage, max_steps)
-    tasks, cfg, red = _handle
+    return _collect(host_ix, wx, _handle, pacbio_error_rate, pb_coverage, max_steps, why)
+
+
+# why a lane comes back -100: an f32 tie gated a threshold retry (hazard),
+# more results than RMAX slots (slots), no end in max_steps (unfinished:
+# code 0, or -900 in the queue), more leaves than max_leaves at the widest
+# config (leaves); a lane with both overflow causes counts as hazard
+FLAG_REASONS = ("hazard", "slots", "unfinished", "leaves")
+
+
+def _collect(host_ix, wx, handle, pacbio_error_rate, pb_coverage, max_steps, why):
+    """run_gap_batch / collect_queue_batch of a handle whose reductions were
+    launched: -100 where the host engine must replay, -200 / -300 lanes
+    re-run (_retry_flagged), the rest finalized; why as run_gap_batch's."""
+    tasks, cfg, red = handle
     red = _to_host(red)
-    out, retry, retry_dense = [], [], []
+    out, reasons, retry, retry_dense = [], [], [], []
     for g, t in enumerate(tasks):
         c = int(red["code"][g])
-        if red["overflow"][g] or c == 0:
+        reason = None
+        if red["overflow"][g]:
+            reason = "hazard" if red["hazard"][g] else "slots"
+        elif c in (0, -900):
+            reason = "unfinished"
+        reasons.append(reason)
+        if reason is not None:
             out.append((-100, ""))
         elif c == -200:
             out.append(None)
@@ -1637,26 +1666,29 @@ def run_gap_batch(host_ix, wx: WalkIndex, tasks, cfg: WalkConfig,
             retry_dense.append(g)
         else:
             out.append(finalize_gap(t, red, g))
-    return _retry_flagged(host_ix, wx, tasks, out, retry, retry_dense, cfg,
-                          pacbio_error_rate, pb_coverage, max_steps)
+    _retry_flagged(host_ix, wx, tasks, out, reasons, retry, retry_dense, cfg,
+                   pacbio_error_rate, pb_coverage, max_steps)
+    if why is not None:
+        why.extend(reasons)
+    return out
 
 
-def _retry_flagged(host_ix, wx, tasks, out, retry, retry_dense,
-                   cfg: WalkConfig, pacbio_error_rate, pb_coverage,
-                   max_steps=4096):
+def _retry_flagged(host_ix, wx, tasks, out, reasons, retry, retry_dense,
+                   cfg: WalkConfig, pacbio_error_rate, pb_coverage, max_steps):
     """Re-run -200 (leaf-slot overflow) gaps in the wide config and -300
-    (slab-span overflow) gaps on the dense engine; fill `out`."""
+    (slab-span overflow) gaps on the dense engine; fill `out` and
+    `reasons`."""
     if retry_dense:
-        _rerun(host_ix, wx, tasks, out, retry_dense, dense_config(cfg),
+        _rerun(host_ix, wx, tasks, out, reasons, retry_dense, dense_config(cfg),
                pacbio_error_rate, pb_coverage, max_steps)
     if retry:
         if cfg.L >= cfg.max_leaves:
             for g in retry:
                 out[g] = (-100, "")
+                reasons[g] = "leaves"
         else:
-            _rerun(host_ix, wx, tasks, out, retry, wide_config(cfg),
+            _rerun(host_ix, wx, tasks, out, reasons, retry, wide_config(cfg),
                    pacbio_error_rate, pb_coverage, max_steps)
-    return out
 
 
 def dense_config(cfg: WalkConfig) -> WalkConfig:
@@ -1669,15 +1701,17 @@ def wide_config(cfg: WalkConfig) -> WalkConfig:
     return replace(cfg, L=cfg.max_leaves, CAND=4 * cfg.max_leaves)
 
 
-def _rerun(host_ix, wx, tasks, out, which, cfg, pacbio_error_rate,
+def _rerun(host_ix, wx, tasks, out, reasons, which, cfg, pacbio_error_rate,
            pb_coverage, max_steps):
     sub = [tasks[g] for g in which]
     for base in range(0, len(sub), cfg.G):
         chunk = sub[base : base + cfg.G]
+        why: list = []
         res = run_gap_batch(host_ix, wx, chunk, replace(cfg, G=len(chunk)),
-                            pacbio_error_rate, pb_coverage, max_steps)
-        for j, r in enumerate(res):
+                            pacbio_error_rate, pb_coverage, max_steps, why=why)
+        for j, (r, w) in enumerate(zip(res, why)):
             out[which[base + j]] = r
+            reasons[which[base + j]] = w
 
 
 def submit_queue_batch(wx: WalkIndex, tasks, cfg: WalkConfig,
@@ -1689,22 +1723,8 @@ def submit_queue_batch(wx: WalkIndex, tasks, cfg: WalkConfig,
 
 
 def collect_queue_batch(host_ix, wx: WalkIndex, handle, pacbio_error_rate,
-                        pb_coverage):
-    """Wait for a submit_queue_batch handle; returns [(code, seq)]."""
-    tasks, cfg, red = handle
-    red = _to_host(red)
-    out, retry, retry_dense = [], [], []
-    for g, t in enumerate(tasks):
-        c = int(red["code"][g])
-        if red["overflow"][g] or c == 0 or c == -900:
-            out.append((-100, ""))  # host replay (flag / timeout / not run)
-        elif c == -200:
-            out.append(None)
-            retry.append(g)
-        elif c == -300:
-            out.append(None)
-            retry_dense.append(g)
-        else:
-            out.append(finalize_gap(t, red, g))
-    return _retry_flagged(host_ix, wx, tasks, out, retry, retry_dense, cfg,
-                          pacbio_error_rate, pb_coverage)
+                        pb_coverage, why: list | None = None):
+    """Wait for a submit_queue_batch handle; returns [(code, seq)], -100
+    where the host engine must replay (flag / timeout / not run); why as
+    run_gap_batch's."""
+    return _collect(host_ix, wx, handle, pacbio_error_rate, pb_coverage, 4096, why)

@@ -83,7 +83,8 @@ def test_process_batch_matches_jax_host(corpus):
     got = port.process_batch(items)
     n_fm = assert_same_as_host(jhix, items, got)
     assert n_fm > 0 and all(r.merge for r in got)
-    assert set(port.phase_times) == {"seed", "walks", "replay"}
+    assert set(port.phase_times) == {"seed", "walks", "replay", "replay.host_engine",
+                                     "replay.dp", "replay.rounds"}
     assert port.phase_times["walks"] > 0
     st = port.stats
     total = st["prefetch_hit"] + st["prefetch_miss"] + st["host_fallback"]

@@ -174,7 +174,9 @@ def test_entry_superstep_matches_jax():
     jstate = jax.jit(jfn)(*jargs)
     fn, (wx, consts, state) = entry.entry("cpu")
     red = fn(wx, consts, state)
-    for f in walk.STATE_FIELDS:
+    # every field the JAX state has (the port's res_hazard marks which
+    # res_overflow lanes an f32 tie raised)
+    for f in (f for f in walk.STATE_FIELDS if f != "res_hazard"):
         a, b = np.asarray(getattr(jstate, f)), getattr(state, f).numpy()
         assert a.dtype == b.dtype and a.shape == b.shape, f
         assert np.array_equal(a, b), (f, np.argwhere(a != b)[:5])
@@ -182,4 +184,5 @@ def test_entry_superstep_matches_jax():
     jred = jw._reduce_results(jstate, jcfg)
     for f, want in zip(walk.REDUCED_FIELDS, jred):
         np.testing.assert_array_equal(getattr(red, f).numpy(), np.asarray(want), err_msg=f)
+    assert not bool((state.res_hazard & ~state.res_overflow).any())
     assert bool((state.cur_len > consts.init_k).any())

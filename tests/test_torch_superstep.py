@@ -13,7 +13,7 @@ import torch
 from longreadselfcorrect_tpu.ops import walk as jw
 from longreadselfcorrect_tpu_torch.ops import walk as tw
 
-from test_torch_walk_prep import configs, make_pair, port_tasks
+from test_torch_walk_prep import JAX_STATE_FIELDS, configs, hazard_ok, make_pair, port_tasks
 from test_walk import make_tasks
 
 # the walks' tensors are small: one torch thread is faster, and keeps the
@@ -55,10 +55,11 @@ def test_superstep_matches_jax(walk_corpus, slab, L, kmax, ck, noisy):
     for step in range(STEPS):
         js = jw.superstep(jwx, jc, js, jcfg)
         ts = tw.superstep_plain(twx, tc, ts, tcfg)
-        for f in tw.STATE_FIELDS:
+        for f in JAX_STATE_FIELDS:
             a, b = np.asarray(getattr(js, f)), getattr(ts, f).numpy()
             assert a.dtype == b.dtype and a.shape == b.shape, (step, f)
             assert np.array_equal(a, b), (step, f, np.argwhere(a != b)[:5])
+        assert hazard_ok(ts), step
     # the walk advanced: every lane grew its label
     assert bool((ts.cur_len > tc.init_k).all())
 

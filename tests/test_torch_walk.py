@@ -13,7 +13,8 @@ import torch
 from longreadselfcorrect_tpu.ops import walk as jw
 from longreadselfcorrect_tpu_torch.ops import walk as tw
 
-from test_torch_walk_prep import configs, index_pair, make_pair, port_tasks
+from test_torch_walk_prep import (JAX_STATE_FIELDS, configs, hazard_ok, index_pair,
+                                  make_pair, port_tasks)
 from test_walk import host_run, make_tasks
 
 # the walks' tensors are small: one torch thread is faster, and keeps the
@@ -55,8 +56,9 @@ def test_reduce_results_fields(walk_corpus, slab):
     for f, w in zip(tw.REDUCED_FIELDS, want):
         a, b = np.asarray(w), getattr(got, f).numpy()
         assert a.dtype == b.dtype and np.array_equal(a, b), f
-    for f in tw.STATE_FIELDS:
+    for f in JAX_STATE_FIELDS:
         assert np.array_equal(np.asarray(getattr(js, f)), getattr(ts, f).numpy()), f
+    assert hazard_ok(ts) and torch.equal(got.hazard, ts.res_hazard)
 
 
 def test_wide_and_dense_reruns():

@@ -71,6 +71,16 @@ def walk_corpus():
     return make_pair(33, 6000, 180)
 
 
+# the state fields the JAX walk has: all but the port's res_hazard, which
+# marks the lanes whose res_overflow an f32 tie raised (hazard_ok)
+JAX_STATE_FIELDS = tuple(f for f in tw.STATE_FIELDS if f != "res_hazard")
+
+
+def hazard_ok(state) -> bool:
+    """res_hazard is one of res_overflow's causes: never set without it."""
+    return not bool((state.res_hazard & ~state.res_overflow).any())
+
+
 def port_tasks(tasks):
     return [tw.GapTask(**{k: getattr(t, k) for k in TASK_FIELDS}) for t in tasks]
 
@@ -186,7 +196,8 @@ def test_prep_batch_and_init_state(walk_corpus, noisy):
     twx = tw.WalkIndex.build(c["td"], c["th"])
     tc, ts = tw.build_batch(twx, port_tasks(tasks), tcfg, 0.15, 30)
     assert_same(jc, tc, tw.CONST_FIELDS + ("freqs", "pacbio_e", "err_bound"), "consts")
-    assert_same(js, ts, tw.STATE_FIELDS, "state")
+    assert_same(js, ts, JAX_STATE_FIELDS, "state")
+    assert not bool(ts.res_hazard.any())
 
 
 @pytest.mark.parametrize("ck,kmax", [(8, 24), (10, 19)])
@@ -206,7 +217,8 @@ def test_prep_bank_with_wcache(walk_corpus, ck, kmax):
     used = np.arange(len(tasks)) % 3 != 1
     js = jw._init_state(jb.consts, jb.root, jnp.asarray(used), jcfg)
     ts = tw.init_state(tb.consts, tb.root, torch.from_numpy(used), tcfg)
-    assert_same(js, ts, tw.STATE_FIELDS, "init_state")
+    assert_same(js, ts, JAX_STATE_FIELDS, "init_state")
+    assert not bool(ts.res_hazard.any())
 
 
 def test_prep_bank_short_seeds_skip_wcache(walk_corpus):

@@ -16,6 +16,8 @@ wcache_level_up_plain on the host trie's levels 3 to 8 (64 to 65,536
 parents, the smallest below one block), and the order it visits the
 parents in is checked to be the order of their intervals on level 8.
 """
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -23,7 +25,10 @@ import torch
 from longreadselfcorrect_tpu_torch.ops import cuda
 from longreadselfcorrect_tpu_torch.ops import walk as tw
 
+from longreadselfcorrect_tpu_torch.core.batch_correct import BatchedSelfCorrector
+from longreadselfcorrect_tpu_torch.core.correct import CorrectionParams
 from test_torch_cuda_shim import build_host
+from test_torch_replay_tracing import PARAMS, clr_corpus, flagged_tasks
 from test_torch_walk_prep import index_pair, make_pair, port_tasks
 from test_walk import make_tasks
 
@@ -139,6 +144,40 @@ def test_walk_kernels_match_plain(lib, corpora, slab, L, kmax, corpus):
         want_q = tw.walk_queue_plain(wx, bank, len(tasks), cfg, max_steps)
         assert_equal(got_q, want_q, tw.REDUCED_FIELDS, f"queue, max_steps {max_steps}")
     assert -900 in want_q.code.tolist()
+
+
+@pytest.fixture(scope="module")
+def clr(tmp_path_factory):
+    """test_torch_replay_tracing.py's CLR read set: the gap tasks of 24
+    reads and the reason the plain walk gives each -100."""
+    reads, hix, dix = clr_corpus(tmp_path_factory.mktemp("clr"))
+    port = BatchedSelfCorrector(hix, dix, CorrectionParams(**PARAMS))
+    return port, *flagged_tasks(port, reads[:24])
+
+
+def test_walk_kernels_hazard_match_plain(lib, clr):
+    """Two CLR gaps whose walks end flagged on an f32 tie and two that do
+    not, at the corrector's bulk config: walk_steps (40 supersteps, then
+    on to completion) and walk_queue equal the plain versions, the hazard
+    bit of the state and of the reduction included."""
+    port, tasks, why = clr
+    pick = ([g for g, w in enumerate(why) if w == "hazard"][:2]
+            + [g for g, w in enumerate(why) if w is None][:2])
+    sel = [tasks[g] for g in pick]
+    cfg = replace(port.cfg, G=len(sel))
+    consts, state = tw.build_batch(port.wx, sel, cfg, 0.15, 30)
+    got, want = tw.clone(state), tw.clone(state)
+    for n in (40, 4096):
+        rk = host_steps(lib, port.wx, consts, got, cfg, n)
+        rp = tw.walk_steps_plain(port.wx, consts, want, cfg, n)
+        assert_equal(got, want, tw.STATE_FIELDS, f"state after {n}")
+        assert_equal(rk, rp, tw.REDUCED_FIELDS, f"reduction after {n}")
+    assert rp.hazard.tolist() == [True, True, False, False]
+    bank = tw.build_bank(port.wx, sel, cfg, 0.15, 30)
+    got_q = host_queue(lib, port.wx, bank, len(sel), cfg, 4096)
+    want_q = tw.walk_queue_plain(port.wx, bank, len(sel), cfg, 4096)
+    assert_equal(got_q, want_q, tw.REDUCED_FIELDS, "queue")
+    assert want_q.hazard.tolist() == [True, True, False, False]
 
 
 def spec_tasks(reads, spec):
