@@ -77,6 +77,7 @@ class BatchedSelfCorrector(SelfCorrector):
         self.cfg_dense = replace(self.cfg_huge, SLAB=False, G=32)
         self._prefetch: dict = {}
         self._flag_why: dict = {}    # gap key -> walk.FLAG_REASONS entry of a -100
+        self._tie_keys: set = set()  # gap keys whose walk resolved a tie (Reduced.tie)
         self._host_walked: set = set()   # gap keys the host engine walked this batch
         # the DP/MSA fallback runs its LF extraction and banded DP fills on
         # the device (core/msa.py dev= route -> ops/msa_kernels)
@@ -85,12 +86,14 @@ class BatchedSelfCorrector(SelfCorrector):
         self._read_incomplete = False
         # counters, summed over the corrector's life (a flat dict of numbers):
         # gap lookups (hits, misses, host fallbacks by cause, the flagged ones
-        # by the card's reason fl_*), the host engine's calls, failures
-        # (code < 0) and repeats of a gap key in one batch, the DP seconds of
-        # replay rounds thrown away, and the miss rounds and their tasks
+        # by the card's reason fl_*), the hits whose walk resolved a tie
+        # among leaves at the minimum error (walk_ties), the host engine's
+        # calls, failures (code < 0) and repeats of a gap key in one batch,
+        # the DP seconds of replay rounds thrown away, and the miss rounds
+        # and their tasks
         self.stats = {"prefetch_hit": 0, "prefetch_miss": 0, "host_fallback": 0,
                       "fb_unfit": 0, "fb_flagged": 0, "fb_lastround": 0, "gaps": 0,
-                      **{"fl_" + r: 0 for r in walk.FLAG_REASONS},
+                      **{"fl_" + r: 0 for r in walk.FLAG_REASONS}, "walk_ties": 0,
                       "he_calls": 0, "he_fail": 0, "he_repeat": 0,
                       "dp_discarded_s": 0.0, "miss_rounds": 0, "miss_tasks": 0}
         self.phase_times = dict.fromkeys(PHASES, 0.0)
@@ -424,15 +427,19 @@ class BatchedSelfCorrector(SelfCorrector):
         e, cov = self.params.error_rate, self.params.pb_coverage
         for kind, tkeys, h in submitted:
             why: list = []
+            ties: list = []
             if kind == "queue":
-                res = walk.collect_queue_batch(self.ix, self.wx, h, e, cov, why=why)
+                res = walk.collect_queue_batch(self.ix, self.wx, h, e, cov, why=why,
+                                               ties=ties)
             else:
                 res = walk.run_gap_batch(self.ix, self.wx, h[0], h[1], e, cov, _handle=h,
-                                         why=why)
-            for k, r, w in zip(tkeys, res, why):
+                                         why=why, ties=ties)
+            for k, r, w, x in zip(tkeys, res, why, ties):
                 self._prefetch[k] = r
                 if w is not None:
                     self._flag_why[k] = w
+                if x:
+                    self._tie_keys.add(k)
 
     # ------------------------------------------------------------------
     # replay
@@ -505,6 +512,7 @@ class BatchedSelfCorrector(SelfCorrector):
         hit = self._prefetch.get(key)
         if hit is not None and hit[0] != -100:
             self.stats["prefetch_hit"] += 1
+            self.stats["walk_ties"] += key in self._tie_keys
             code, merged = hit
         elif (self._misses is not None and hit is None
               and self._fits_any(src, path, trg, interval, ek)):
@@ -582,6 +590,7 @@ class BatchedSelfCorrector(SelfCorrector):
             tasks, keys = self._enumerate_walks(per_read)
             self._prefetch = {}
             self._flag_why = {}
+            self._tie_keys = set()
             self._host_walked = set()
             self._collect_tasks(self._submit_tasks(tasks, keys))
             self.stats["gaps"] += len(tasks)

@@ -46,8 +46,9 @@
 // state stays in shared memory (walk.cuh's layout) and touches device
 // memory only at load, write-back and results.
 //
-// Built with -fmad=false -prec-div=true -ftz=false: the f32 compares must
-// give the JAX results bit for bit (walk.cuh).
+// Built with -fmad=false -prec-div=true -ftz=false: the f32 cutoffs must
+// give the JAX results bit for bit, and the f64 error rates the host
+// engine's (walk.cuh).
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -121,8 +122,8 @@ Consts read_consts(Args& a) {
   k.min_length = a.ptr<const int*>();
   k.no_term = a.ptr<const bool*>();
   k.freqs = a.ptr<const float*>();
-  k.pacbio_e = a.ptr<const float*>();
-  k.err_bound = a.ptr<const float*>();
+  k.redeem = a.ptr<const double*>();
+  k.err_bound = a.ptr<const double*>();
   return k;
 }
 
@@ -143,8 +144,7 @@ State read_state(Args& a) {
   s.num_errors = a.ptr<int*>();
   s.seed_idx_offset = a.ptr<int*>();
   s.query_overlap_len = a.ptr<int*>();
-  s.red_a = a.ptr<int*>();
-  s.red_b = a.ptr<int*>();
+  s.nrs = a.ptr<double*>();
   s.res_first = a.ptr<int*>();
   s.res_second = a.ptr<int*>();
   s.tail_letter = a.ptr<int8_t*>();
@@ -152,9 +152,9 @@ State read_state(Args& a) {
   s.tail9 = a.ptr<int*>();
   s.tail8 = a.ptr<int*>();
   s.chain = a.ptr<int*>();
-  s.local_err = a.ptr<float*>();
-  s.gerr_last = a.ptr<float*>();
-  s.ring = a.ptr<float*>();
+  s.local_err = a.ptr<double*>();
+  s.gerr_last = a.ptr<double*>();
+  s.ring = a.ptr<double*>();
   s.active = a.ptr<bool*>();
   s.cur_len = a.ptr<int*>();
   s.cur_k = a.ptr<int*>();
@@ -162,11 +162,11 @@ State read_state(Args& a) {
   s.code = a.ptr<int*>();
   s.res_labels = a.ptr<int8_t*>();
   s.res_len = a.ptr<int*>();
-  s.res_err = a.ptr<float*>();
+  s.res_err = a.ptr<double*>();
   s.res_i = a.ptr<int*>();
   s.res_count = a.ptr<int*>();
   s.res_overflow = a.ptr<bool*>();
-  s.res_hazard = a.ptr<bool*>();
+  s.res_tie = a.ptr<bool*>();
   return s;
 }
 
@@ -178,7 +178,7 @@ Reduced read_reduced(Args& a) {
   r.lab = a.ptr<int8_t*>();
   r.len = a.ptr<int*>();
   r.i = a.ptr<int*>();
-  r.hazard = a.ptr<bool*>();
+  r.tie = a.ptr<bool*>();
   return r;
 }
 

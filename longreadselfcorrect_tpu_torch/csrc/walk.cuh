@@ -37,10 +37,15 @@
 // order (the same), the last writer per result slot (the largest
 // candidate, atomicMax), the seed match's first strict minimum (the least
 // (diff, pos) key, atomicMin), isTerminated's last window (atomicMax);
-// min/max reductions are exact in any order.  Each candidate's f32
-// arithmetic stays in one thread with the intrinsics XLA's fused
-// multiply-adds give (__fmaf_rn / __fmul_rn; the file is built with
-// -fmad=false so nothing else is contracted).
+// min/max reductions are exact in any order.  The error rates are the
+// host engine's (core/extend.py): each leaf carries num_redeem_seed as a
+// running f64 sum (the record's F_NRS), and a candidate's
+// computeErrorRate, the erase test, the prune bound, the retry minimum and
+// the result choice run in f64 in the host's order, in one thread, with
+// __dadd_rn / __dsub_rn / __dmul_rn / __ddiv_rn, so nothing is contracted
+// (the file is built with -fmad=false, which the f32 ratio cutoffs need).
+// A tie among distinct leaves at the minimum is then decided as the host
+// decides it; the lane keeps an informational `tie` bit.
 //
 // Rank queries go through rank.cuh directly: where the JAX slab engine
 // (SLAB configs) reads a rank off a block slab, every such query lies in
@@ -93,8 +98,8 @@ struct Consts {
   const int* min_length;
   const bool* no_term;
   const float* freqs;
-  const float* pacbio_e;
-  const float* err_bound;
+  const double* redeem;     // the num_redeem_seed adds: (SS - 1) * e, 1 - e
+  const double* err_bound;  // the prune bound on a leaf's local error
 };
 
 struct Root {
@@ -115,19 +120,20 @@ struct State {
   int *f_lo, *f_hi, *r_lo, *r_hi;
   bool* alive;
   int *kmer_freq, *total_kmer, *last_seed_idx, *last_overlap_len, *total_seeds,
-      *curr_overlap_len, *num_errors, *seed_idx_offset, *query_overlap_len, *red_a,
-      *red_b, *res_first, *res_second;
+      *curr_overlap_len, *num_errors, *seed_idx_offset, *query_overlap_len;
+  double* nrs;
+  int *res_first, *res_second;
   int8_t* tail_letter;
   int *tail_count, *tail9, *tail8, *chain;
-  float *local_err, *gerr_last, *ring;
+  double *local_err, *gerr_last, *ring;
   bool* active;
   int *cur_len, *cur_k, *gerr_n, *code;
   int8_t* res_labels;
   int* res_len;
-  float* res_err;
+  double* res_err;
   int *res_i, *res_count;
   bool* res_overflow;
-  bool* res_hazard;  // sticky: an f32 tie gated a threshold retry
+  bool* res_tie;  // sticky: distinct leaves tied at the minimum and gated a retry
 };
 
 struct Reduced {
@@ -137,7 +143,7 @@ struct Reduced {
   int8_t* lab;
   int* len;
   int* i;
-  bool* hazard;  // overflow raised by an f32 tie
+  bool* tie;  // the walk resolved a tie (res_tie)
 };
 
 __device__ __forceinline__ int floordiv(int a, int b) {
@@ -221,10 +227,14 @@ __device__ __forceinline__ int nth_bit(unsigned m, int k) {
 __device__ __forceinline__ unsigned low_mask(int n) {
   return n >= 32 ? kFull : (1u << n) - 1u;
 }
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
+__device__ __forceinline__ double warp_min(double v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmin(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
+__device__ __forceinline__ const double& f64(const int* p) {
+  return *reinterpret_cast<const double*>(p);
+}
+__device__ __forceinline__ double& f64(int* p) { return *reinterpret_cast<double*>(p); }
 __device__ __forceinline__ int warp_max(int v) {
   return (int)__reduce_max_sync(kFull, (unsigned)max(v, 0));
 }
@@ -234,20 +244,23 @@ __device__ __forceinline__ int warp_max(int v) {
 // lane_smem_bytes
 // ---------------------------------------------------------------------------
 
-// leaf record: the scalars, then the chain ring [4][NC], then the error ring
+// leaf record: the int scalars, the f64 ones (two ints each, 8-byte
+// aligned: the local and the last global error, num_redeem_seed), two
+// ints of padding, then the chain ring [4][NC], then the error ring of RING
+// doubles rounded up to a pair (copied as 16-byte vectors)
 enum Field {
   F_FLO, F_FHI, F_RLO, F_RHI, F_KFREQ, F_TOTK, F_LSEED, F_LOVL, F_TSEEDS, F_COVL,
-  F_NERR, F_SIO, F_QOVL, F_REDA, F_REDB, F_RF, F_RS, F_TLET, F_TCNT, F_T9, F_T8,
-  F_LERR, F_GLAST, F_LEN, kScal
+  F_NERR, F_SIO, F_QOVL, F_RF, F_RS, F_TLET, F_TCNT, F_T9, F_T8, F_LEN,
+  F_LERR = 20, F_GLAST = 22, F_NRS = 24, kScal = 28
 };
 // candidate scratch: [0, 16) the level-0 and level-1 probes (5 + 5), then
-// the refine's three levels (12), then the new counters (NewField); the
-// chosen interval and freq at 16; the seed key at 21 and isTerminated's
-// last window at 22
+// the refine's three levels (12), then the new counters (NewField, the f64
+// ones at even ints); the chosen interval and freq at 16; the seed key at
+// 21 and isTerminated's last window at 22
 constexpr int kCandW = 24, C_P0 = 0, C_P1 = 5, C_CI = 16, C_KEY = 21, C_IMAX = 22;
 enum NewField {
-  N_LSEED, N_LOVL, N_TSEEDS, N_COVL, N_NERR, N_SIO, N_QOVL, N_REDA, N_REDB, N_RF, N_RS,
-  N_GERR, N_LOCAL
+  N_LSEED, N_LOVL, N_TSEEDS, N_COVL, N_NERR, N_SIO, N_QOVL, N_RF, N_RS,
+  N_GERR = 10, N_LOCAL = 12, N_NRS = 14
 };
 
 struct Layout {
@@ -259,14 +272,14 @@ __host__ __device__ __forceinline__ int align16(int x) { return (x + 15) & ~15; 
 
 __host__ __device__ __forceinline__ Layout lane_layout(const Cfg& c) {
   Layout y;
-  y.RS = kScal + 4 * c.NC + ((c.RING + 3) & ~3);
+  y.RS = kScal + 4 * c.NC + 2 * ((c.RING + 1) & ~1);
   int off = 0;
   y.rec = off;
   off += 2 * c.L * y.RS * 4;
   y.cand = off;
   off += 4 * c.L * kCandW * 4;
-  y.res = off;  // res_len, res_err, res_i, res_ref, src: [RMAX] each
-  off += align16(5 * c.RMAX * 4);
+  y.res = off;  // res_err (f64), res_len, res_i, res_ref, src: [RMAX] each
+  off += align16(6 * c.RMAX * 4);
   y.lsrc = off;
   off += align16(c.L * 4);
   y.hist = off;
@@ -293,7 +306,7 @@ struct Walker {
   int max_length, max_overlap, min_overlap, min_sa, max_indel, q_len, min_length, n_term;
   bool no_term;
   // warp-uniform lane state
-  bool active, overflow, hazard;
+  bool active, overflow, tie;
   int code, cur_len, cur_k, gerr_n, res_count;
   unsigned alive, owner;
 
@@ -305,19 +318,21 @@ struct Walker {
   }
   __device__ __forceinline__ int* cur(int l) const { return rec((owner >> l) & 1, l); }
   __device__ __forceinline__ int* nxt(int l) const { return rec(((owner >> l) & 1) ^ 1, l); }
-  __device__ __forceinline__ float* ring(const int* r) const {
-    return reinterpret_cast<float*>(const_cast<int*>(r) + kScal + 4 * cf.NC);
+  __device__ __forceinline__ double* ring(const int* r) const {
+    return reinterpret_cast<double*>(const_cast<int*>(r) + kScal + 4 * cf.NC);
   }
   __device__ __forceinline__ int* cnd(int c) const {
     return reinterpret_cast<int*>(sm + Y.cand) + c * kCandW;
   }
-  __device__ __forceinline__ int* res_len() const { return reinterpret_cast<int*>(sm + Y.res); }
-  __device__ __forceinline__ float* res_err() const {
-    return reinterpret_cast<float*>(sm + Y.res) + cf.RMAX;
+  __device__ __forceinline__ double* res_err() const {
+    return reinterpret_cast<double*>(sm + Y.res);
   }
-  __device__ __forceinline__ int* res_i() const { return res_len() + 2 * cf.RMAX; }
-  __device__ __forceinline__ int* res_ref() const { return res_len() + 3 * cf.RMAX; }
-  __device__ __forceinline__ int* src() const { return res_len() + 4 * cf.RMAX; }
+  __device__ __forceinline__ int* res_len() const {
+    return reinterpret_cast<int*>(sm + Y.res) + 2 * cf.RMAX;
+  }
+  __device__ __forceinline__ int* res_i() const { return res_len() + cf.RMAX; }
+  __device__ __forceinline__ int* res_ref() const { return res_len() + 2 * cf.RMAX; }
+  __device__ __forceinline__ int* src() const { return res_len() + 3 * cf.RMAX; }
   __device__ __forceinline__ int* lsrc() const { return reinterpret_cast<int*>(sm + Y.lsrc); }
   __device__ __forceinline__ uint8_t* hist() const { return reinterpret_cast<uint8_t*>(sm + Y.hist); }
 
@@ -391,10 +406,11 @@ struct Walker {
 
   // `attempt` (+ _leaf_choice) on the probes at po for the alive1 leaves:
   // ext at threshold min_sa (retry at min_sa - 1); with lvl2, also level
-  // 2's ext (threshold min_sa - 1, retry at min_sa - 2)
-  __device__ __forceinline__ void attempt(int po, unsigned alive1, unsigned retry, unsigned tie,
+  // 2's ext (threshold min_sa - 1, retry at min_sa - 2); tie1 / tie2: a
+  // leaf of the tied mask needed its retry at that level
+  __device__ __forceinline__ void attempt(int po, unsigned alive1, unsigned retry, unsigned tied,
                           const unsigned* m5w, bool lvl2, unsigned* ext, unsigned* ext2,
-                          bool& haz, bool& haz2) const {
+                          bool& tie1, bool& tie2) const {
     const int C = 4 * cf.L;
     bool h = false, h2 = false;
 #pragma unroll
@@ -422,14 +438,14 @@ struct Walker {
       const bool any_t = (__ballot_sync(kFull, mt) >> sh) & 0xF;
       const bool any_t1 = (__ballot_sync(kFull, mt1) >> sh) & 0xF;
       const bool any_t2 = (__ballot_sync(kFull, mt2) >> sh) & 0xF;
-      const bool ret = (retry >> (l & 31)) & 1, ti = (tie >> (l & 31)) & 1;
+      const bool ret = (retry >> (l & 31)) & 1, ti = (tied >> (l & 31)) & 1;
       ext[r] = __ballot_sync(kFull, in && (any_t ? mt : (ret && mt1)));
       ext2[r] = __ballot_sync(kFull, in && (any_t1 ? mt1 : (ret && mt2)));
       h |= in && ti && !any_t && any_t1;
       h2 |= in && ti && !any_t1 && any_t2;
     }
-    haz = __any_sync(kFull, h);
-    haz2 = __any_sync(kFull, h2);
+    tie1 = __any_sync(kFull, h);
+    tie2 = __any_sync(kFull, h2);
   }
 
   // one superstep of this lane (JAX superstep)
@@ -478,19 +494,20 @@ struct Walker {
     const int jmo = clampi(max_overlap - CK, 0, NC - 1);
     const int cur_k0 = need_ref0 ? max_overlap : cur_k;
 
-    // attempToExtend: erase relatively bad leaves, retry eligibility
-    const float le = mine ? __int_as_float(me[F_LERR]) : 2.0f;
-    const float ev = alive_l ? le : 2.0f;
-    const float min_err = warp_min(ev);
+    // attempToExtend: erase relatively bad leaves, retry eligibility (f64,
+    // the host's compares)
+    const double le = mine ? f64(me + F_LERR) : 2.0;
+    const double ev = alive_l ? le : 2.0;
+    const double min_err = warp_min(ev);
     bool erase = false;
     if (alive_l) {
-      const float diff = __fsub_rn(le, min_err);
-      erase = (diff > 0.05f && cur_len > cf.RING / 2) || (diff > 0.1f && cur_len > 15);
+      const double diff = __dsub_rn(le, min_err);
+      erase = (diff > 0.05 && cur_len > cf.RING / 2) || (diff > 0.1 && cur_len > 15);
     }
     const unsigned alive1 = __ballot_sync(kFull, alive_l && !erase);
     const unsigned is_min = __ballot_sync(kFull, mine && ev == min_err);
     const unsigned retry = __popc(alive1) > 1 ? is_min : 0u;
-    const unsigned tie = __popc(is_min & alive) > 1 ? retry : 0u;
+    const unsigned tied = __popc(is_min & alive) > 1 ? retry : 0u;
 
     // ismatchedbykmer (:787-821) of every candidate's 5-suffix, one scan
     // of the query window: bit c = the window holds it
@@ -518,14 +535,14 @@ struct Walker {
     // level 0
     probe(alive1, C_P0, cf.SLAB ? clampi(cur_k0 - CK, 0, NC - 1) : -1, need_ref0, jmo);
     unsigned extA[NW], unused[NW];
-    bool hazA, haz_unused;
-    attempt(C_P0, alive1, retry, tie, m5w, false, extA, unused, hazA, haz_unused);
+    bool tieA, tie_unused;
+    attempt(C_P0, alive1, retry, tied, m5w, false, extA, unused, tieA, tie_unused);
     const bool gapA = count(extA) > 0;
 
     // level 1 (k reduce) + level 2 (threshold relax), only when needed
     const bool need_l1 = !gapA;
     unsigned extB[NW], extC[NW];
-    bool gapB = false, gapC = false, hazBC = false;
+    bool gapB = false, gapC = false, tieBC = false;
     int reduce_size = cur_k0;
     if (need_l1) {
       const int lower = max(cur_k0 - 2, min_overlap);
@@ -542,11 +559,11 @@ struct Walker {
       }
       reduce_size = select_freqs(K, maxf, lower, cur_k0);
       probe(alive1, C_P1, clampi(reduce_size - CK, 0, NC - 1), false, 0);
-      bool hazB, hazC;
-      attempt(C_P1, alive1, retry, tie, m5w, true, extB, extC, hazB, hazC);
+      bool tieB, tieC;
+      attempt(C_P1, alive1, retry, tied, m5w, true, extB, extC, tieB, tieC);
       gapB = count(extB) > 0;
       gapC = count(extC) > 0 && !gapB;
-      hazBC = hazB || hazC;
+      tieBC = tieB || tieC;
     }
     const bool use_l1 = need_l1 && (gapB || gapC);
 
@@ -626,7 +643,7 @@ struct Walker {
     const int large_idx = min(curr_seed_idx + indel_off, q_len - SS);
     const int n_app = gerr_n + 1;
     const int slot_w = floormod(n_app - 1, cf.RING), slot_r = floormod(n_app, cf.RING);
-    const float pe = *K.pacbio_e, eb = *K.err_bound;
+    const double red_hit = K.redeem[0], red_miss = K.redeem[1], eb = *K.err_bound;
     const bool may_term = success && !no_term && cur_len_new >= min_length;
     // the parents of the candidates, as a leaf mask (round r holds the
     // candidates of leaves 8r..8r+7)
@@ -677,20 +694,22 @@ struct Walker {
         const int* P = cur(c >> 2);
         int* X = cnd(c);
         int last_seed = P[F_LSEED], last_ovl = P[F_LOVL], total_seeds = P[F_TSEEDS];
-        int num_err = P[F_NERR], sio = P[F_SIO], red_a = P[F_REDA], red_b = P[F_REDB];
+        int num_err = P[F_NERR], sio = P[F_SIO];
         int qovl = P[F_QOVL] + 1, covl = P[F_COVL] + 1;
+        double nrs = f64(P + F_NRS);
         const int gap_len = cur_len_new - last_ovl;
         const bool do_match = gap_len > SS || gap_len <= 1;
         const unsigned key = (unsigned)X[C_KEY];
         const bool found = key != 0xffffffffu;
         const int best_pos = (int)(key & 0xffffu);
         const int v = curr_seed_idx + sio - last_seed;
-        if (found && v > SS) red_b += 1;
+        // the host's num_redeem_seed adds, at most one a step
+        if (found && v > SS) nrs = __dadd_rn(nrs, red_hit);
         if (do_match && !found) {
           if (floormod(v, SS) == 1) num_err += 1;
-          else if (v > SS - 1) red_a += 1;
+          else if (v > SS - 1) nrs = __dadd_rn(nrs, red_miss);
         }
-        if (!do_match) red_a += 1;
+        if (!do_match) nrs = __dadd_rn(nrs, red_miss);
         if (found) {
           sio = best_pos - curr_seed_idx;
           last_seed = best_pos;
@@ -699,15 +718,16 @@ struct Walker {
           covl = cur_len_new;
           total_seeds += 1;
         }
-        const int U = covl - total_seeds - (SS - 1) - red_a;
-        const int V = red_a - (SS - 1) * red_b;
-        const float total = (float)covl;
-        const float gerr = __fdiv_rn(__fmaf_rn((float)V, pe, (float)U), total);
-        float local = gerr;
+        // computeErrorRate (:638-664), term for term as the host computes it
+        const double matched = __dadd_rn((double)(total_seeds + SS - 1), nrs);
+        const double total = (double)covl;
+        const double gerr = __ddiv_rn(__dsub_rn(total, matched), total);
+        double local = gerr;
         if (n_app >= cf.RING) {
-          const float old = ring(P)[slot_r];
-          const float sub = __fmul_rn(old, __fsub_rn(total, (float)cf.RING));
-          local = __fmul_rn(__fmaf_rn(gerr, total, -sub), __fdiv_rn(1.0f, (float)cf.RING));
+          const double old = ring(P)[slot_r], ring_n = (double)cf.RING;
+          local = __ddiv_rn(__dsub_rn(__dmul_rn(gerr, total),
+                                      __dmul_rn(old, __dsub_rn(total, ring_n))),
+                            ring_n);
         }
         s = !(local > eb);
         X[N_LSEED] = last_seed;
@@ -717,12 +737,11 @@ struct Walker {
         X[N_NERR] = num_err;
         X[N_SIO] = sio;
         X[N_QOVL] = qovl;
-        X[N_REDA] = red_a;
-        X[N_REDB] = red_b;
         X[N_RF] = P[F_RF];
         X[N_RS] = P[F_RS];
-        X[N_GERR] = __float_as_int(gerr);
-        X[N_LOCAL] = __float_as_int(local);
+        f64(X + N_GERR) = gerr;
+        f64(X + N_LOCAL) = local;
+        f64(X + N_NRS) = nrs;
       }
       surv[r] = __ballot_sync(kFull, s);
     }
@@ -777,11 +796,11 @@ struct Walker {
       if (c < 0) continue;
       const int* X = cnd(c);
       res_len()[r] = cur_len_new;
-      res_err()[r] = __int_as_float(X[N_GERR]);
+      res_err()[r] = f64(X + N_GERR);
       res_i()[r] = X[C_IMAX];
       res_ref()[r] = (cur_len_new << 16) | ((c >> 2) << 8) | ((c & 3) + 1);
     }
-    const bool fp_hazard = hazA || (hazBC && need_l1);
+    const bool walk_tie = tieA || (tieBC && need_l1);
     const int res_count_new = res_count + n_newres;
 
     // compact survivors into leaf slots, in candidate order
@@ -816,16 +835,15 @@ struct Walker {
       D[F_NERR] = X[N_NERR];
       D[F_SIO] = X[N_SIO];
       D[F_QOVL] = X[N_QOVL];
-      D[F_REDA] = X[N_REDA];
-      D[F_REDB] = X[N_REDB];
       D[F_RF] = X[N_RF];
       D[F_RS] = X[N_RS];
       D[F_TLET] = ch;
       D[F_TCNT] = P[F_TLET] == ch ? P[F_TCNT] + 1 : 1;
       D[F_T9] = ((P[F_T9] << 3) | ch) & ((1 << 27) - 1);
       D[F_T8] = ((P[F_T8] << 2) | (ch - 1)) & ckmask;
-      D[F_LERR] = X[N_LOCAL];
-      D[F_GLAST] = X[N_GERR];
+      f64(D + F_LERR) = f64(X + N_LOCAL);
+      f64(D + F_GLAST) = f64(X + N_GERR);
+      f64(D + F_NRS) = f64(X + N_NRS);
       D[F_LEN] = cur_len_new;
       if (cur_len_new - 1 < cf.MAXLEN)
         hist()[(cur_len_new - 1) * L + lane] = (uint8_t)(ch | ((c >> 2) << 3));
@@ -853,20 +871,18 @@ struct Walker {
       D[2 * side * NC + j] = a;
       D[(2 * side + 1) * NC + j] = z;
     }
-    const int RV = (cf.RING + 3) >> 2;  // float4 vectors of a ring
+    const int RV = (cf.RING + 1) >> 1;  // double2 vectors of a ring
     for (int i = lane; i < nleaf * RV; i += 32) {
       const int l = i / RV, v = i % RV, c = lsrc()[l];
-      float4 x = reinterpret_cast<const float4*>(ring(cur(c >> 2)))[v];
-      if ((slot_w >> 2) == v) {
-        const float g = __int_as_float(cnd(c)[N_GERR]);
-        switch (slot_w & 3) {
-          case 0: x.x = g; break;
-          case 1: x.y = g; break;
-          case 2: x.z = g; break;
-          default: x.w = g;
-        }
+      double2 x = reinterpret_cast<const double2*>(ring(cur(c >> 2)))[v];
+      if ((slot_w >> 1) == v) {
+        const double g = f64(cnd(c) + N_GERR);
+        if (slot_w & 1)
+          x.y = g;
+        else
+          x.x = g;
       }
-      reinterpret_cast<float4*>(ring(nxt(l)))[v] = x;
+      reinterpret_cast<double2*>(ring(nxt(l)))[v] = x;
     }
     __syncwarp();
     owner ^= low_mask(nleaf);
@@ -880,8 +896,8 @@ struct Walker {
     cur_k = cur_k_new;
     if (success) gerr_n = n_app;
     res_count = res_count_new;
-    overflow = overflow || any_over || fp_hazard;
-    hazard = hazard || fp_hazard;
+    overflow = overflow || any_over;
+    tie = tie || walk_tie;
   }
 
   // the label of length n whose last position was written into slot l,
@@ -902,14 +918,14 @@ struct Walker {
   }
 
   // the first slot with the least error below 1.0 (-1: none) among n
-  __device__ __forceinline__ int best_result(const float* err, int n) const {
-    float be = 2.0f;
+  __device__ __forceinline__ int best_result(const double* err, int n) const {
+    double be = 2.0;
     int best = -1;
     for (int base = 0; base < cf.RMAX; base += 32) {
       const int r = base + lane;
-      const float e = r < n ? err[r] : 2.0f;
-      const float v = e < 1.0f ? e : 2.0f;
-      const float m = warp_min(v);
+      const double e = r < n ? err[r] : 2.0;
+      const double v = e < 1.0 ? e : 2.0;
+      const double m = warp_min(v);
       if (m < be) {
         be = m;
         best = base + __ffs(__ballot_sync(kFull, v == m)) - 1;
@@ -930,7 +946,7 @@ struct Walker {
     if (lane == 0) {
       R.code[out] = S.code[g];
       R.overflow[out] = S.res_overflow[g];
-      R.hazard[out] = S.res_hazard[g];
+      R.tie[out] = S.res_tie[g];
       R.has[out] = has;
       R.len[out] = S.res_len[gr + best];
       R.i[out] = S.res_i[gr + best];
@@ -950,7 +966,7 @@ struct Walker {
       if (ref) result_to(to, ref);
       R.code[out] = code;
       R.overflow[out] = overflow;
-      R.hazard[out] = hazard;
+      R.tie[out] = tie;
       R.has[out] = has;
       R.len[out] = res_len()[best];
       R.i[out] = res_i()[best];
@@ -969,7 +985,7 @@ struct Walker {
     gerr_n = S.gerr_n[g];
     res_count = S.res_count[g];
     overflow = S.res_overflow[g];
-    hazard = S.res_hazard[g];
+    tie = S.res_tie[g];
     alive = __ballot_sync(kFull, lane < L && S.alive[gl + lane]);
     owner = 0;
     const int base_len = clampi(cur_len, 0, cf.MAXLEN);
@@ -989,16 +1005,15 @@ struct Walker {
       D[F_NERR] = S.num_errors[x];
       D[F_SIO] = S.seed_idx_offset[x];
       D[F_QOVL] = S.query_overlap_len[x];
-      D[F_REDA] = S.red_a[x];
-      D[F_REDB] = S.red_b[x];
       D[F_RF] = S.res_first[x];
       D[F_RS] = S.res_second[x];
       D[F_TLET] = S.tail_letter[x];
       D[F_TCNT] = S.tail_count[x];
       D[F_T9] = S.tail9[x];
       D[F_T8] = S.tail8[x];
-      D[F_LERR] = __float_as_int(S.local_err[x]);
-      D[F_GLAST] = __float_as_int(S.gerr_last[x]);
+      f64(D + F_LERR) = S.local_err[x];
+      f64(D + F_GLAST) = S.gerr_last[x];
+      f64(D + F_NRS) = S.nrs[x];
       D[F_LEN] = base_len;
     }
     for (int i = lane; i < L * 4 * NC; i += 32)
@@ -1042,16 +1057,15 @@ struct Walker {
       S.num_errors[x] = D[F_NERR];
       S.seed_idx_offset[x] = D[F_SIO];
       S.query_overlap_len[x] = D[F_QOVL];
-      S.red_a[x] = D[F_REDA];
-      S.red_b[x] = D[F_REDB];
+      S.nrs[x] = f64(D + F_NRS);
       S.res_first[x] = D[F_RF];
       S.res_second[x] = D[F_RS];
       S.tail_letter[x] = (int8_t)D[F_TLET];
       S.tail_count[x] = D[F_TCNT];
       S.tail9[x] = D[F_T9];
       S.tail8[x] = D[F_T8];
-      S.local_err[x] = __int_as_float(D[F_LERR]);
-      S.gerr_last[x] = __int_as_float(D[F_GLAST]);
+      S.local_err[x] = f64(D + F_LERR);
+      S.gerr_last[x] = f64(D + F_GLAST);
       label_to(S.labels + x * cf.MAXLEN, min(D[F_LEN], cf.MAXLEN), lane);
     }
     for (int i = lane; i < L * 4 * NC; i += 32)
@@ -1072,7 +1086,7 @@ struct Walker {
       S.gerr_n[g] = gerr_n;
       S.res_count[g] = res_count;
       S.res_overflow[g] = overflow;
-      S.res_hazard[g] = hazard;
+      S.res_tie[g] = tie;
     }
     __syncwarp();
   }
@@ -1086,7 +1100,7 @@ struct Walker {
     cur_len = cur_k = ik;
     gerr_n = 1;
     res_count = 0;
-    overflow = hazard = false;
+    overflow = tie = false;
     alive = 1u;
     owner = 0;
     const int base_len = clampi(ik, 0, cf.MAXLEN);
@@ -1106,23 +1120,22 @@ struct Walker {
       D[F_NERR] = 0;
       D[F_SIO] = 0;
       D[F_QOVL] = u ? ik : 0;
-      D[F_REDA] = 0;
-      D[F_REDB] = 0;
       D[F_RF] = -1;
       D[F_RS] = -1;
       D[F_TLET] = u ? RT.tail_letter[t] : 0;
       D[F_TCNT] = u ? RT.tail_count[t] : 0;
       D[F_T9] = u ? RT.tail9[t] : 0;
       D[F_T8] = u ? RT.tail8[t] : 0;
-      D[F_LERR] = __float_as_int(0.0f);
-      D[F_GLAST] = __float_as_int(0.0f);
+      f64(D + F_LERR) = 0.0;
+      f64(D + F_GLAST) = 0.0;
+      f64(D + F_NRS) = 0.0;
       D[F_LEN] = base_len;
     }
     for (int i = lane; i < L * 4 * NC; i += 32) {
       const int l = i / (4 * NC), k = i % (4 * NC);
       rec(0, l)[kScal + k] = l == 0 ? RT.chain0[(size_t)t * 4 * NC + k] : ((k / NC) & 1 ? -1 : 0);
     }
-    for (int i = lane; i < L * cf.RING; i += 32) ring(rec(0, i / cf.RING))[i % cf.RING] = 0.0f;
+    for (int i = lane; i < L * cf.RING; i += 32) ring(rec(0, i / cf.RING))[i % cf.RING] = 0.0;
     const int8_t* q = K.query + (size_t)t * cf.QMAX;
     for (int i = lane; i < L * base_len; i += 32) {
       const int l = i / base_len, pos = i % base_len;
@@ -1131,7 +1144,7 @@ struct Walker {
     }
     for (int r = lane; r < cf.RMAX; r += 32) {
       res_len()[r] = 0;
-      res_err()[r] = 0.0f;
+      res_err()[r] = 0.0;
       res_i()[r] = 0;
       res_ref()[r] = 0;
     }

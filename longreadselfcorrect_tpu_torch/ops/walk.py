@@ -3,10 +3,15 @@
 The host engine (core/extend.py) walks one seed-gap at a time.  This module
 walks many gaps at once as fixed-shape state over ``G`` gap lanes x ``L``
 leaf slots, one superstep per base, as the JAX package's ops/walk.py does
-(semantics of PacBio/LongReadCorrectByOverlap.cpp, with the two documented
-divergences of that module: seed-support ties break by smaller position,
-and error rates are float32 built from integer counters; lanes whose
-outcome hinges on an f32 tie are flagged for host replay).
+(semantics of PacBio/LongReadCorrectByOverlap.cpp).  One documented
+divergence of the JAX module is kept: seed-support ties break by smaller
+position.  The JAX module builds its error rates in float32 from integer
+counters and flags for host replay the lanes whose outcome hinges on an
+f32 tie; here each leaf carries the host engine's running
+``num_redeem_seed`` as an f64, and computeErrorRate, the erase and prune
+tests, the retry's minimum and the result choice run in f64 in the host
+engine's order, so every tie is decided as HostExtendEngine decides it.
+A lane that met such a tie carries the informational ``tie`` bit.
 
 Four CUDA kernels (csrc/walk.cu) carry it on the card (the walk kernels
 one warp per gap lane, the lane's state in shared memory as
@@ -48,37 +53,49 @@ from . import cuda, rank
 I32 = torch.int32
 I8 = torch.int8
 F32 = torch.float32
+F64 = torch.float64
 
 CACHE_K = 8  # base cached k-mer length for chain seeding (BWTIntervalCache analog)
 # walk_steps launches per config (G set to 0): which configs a run walked
 STEP_CONFIGS: dict = {}
 _BIG = 1 << 30
+ERR_BOUND = 0.25  # HostExtendEngine's error_rate bound on a leaf's local error
 
 
 def _f32(x: float) -> torch.Tensor:
     return torch.tensor(np.float32(x), dtype=F32)
 
 
-def fma_f32(a, b, c) -> torch.Tensor:
-    """a*b + c for f32 tensors with ONE rounding to f32, as a fused
-    multiply-add gives it.  a*b is exact in f64; the f64 sum and its exact
-    error (two-sum) decide the f32 rounding, ties included."""
-    a, b, c = (x.to(torch.float64) for x in (a, b, c))
-    p = a * b
-    s = p + c
-    bb = s - p
-    err = (p - (s - bb)) + (c - bb)
-    r = s.to(F32)
-    # s may sit exactly halfway between two f32 values while the exact sum
-    # does not: round toward the error's side then
-    up = torch.nextafter(r, torch.full_like(r, float("inf")))
-    dn = torch.nextafter(r, torch.full_like(r, float("-inf")))
-    rd = r.to(torch.float64)
-    mid_up = (s > rd) & (s == (rd + up.to(torch.float64)) / 2)
-    mid_dn = (s < rd) & (s == (rd + dn.to(torch.float64)) / 2)
-    r = torch.where(mid_up & (err > 0), up, r)
-    r = torch.where(mid_dn & (err < 0), dn, r)
-    return r
+def redeem_adds(pacbio_error_rate: float, seed_size: int) -> torch.Tensor:
+    """The host engine's two num_redeem_seed increments as f64 [2]:
+    (seed_size - 1) * e on a found seed, 1 - e otherwise (core/extend.py
+    _pruned_by_seed_support), from e as the Python double it is there."""
+    return torch.tensor([(seed_size - 1) * pacbio_error_rate, 1 - pacbio_error_rate],
+                        dtype=F64)
+
+
+def add_redeem(nrs, hit, miss, redeem):
+    """A leaf's num_redeem_seed after one step of PrunedBySeedSupport: plus
+    redeem[0] on a found seed past seed_size (hit), plus redeem[1] on a
+    miss past it or a step between seed checks (miss), else unchanged."""
+    return torch.where(hit, nrs + redeem[0], torch.where(miss, nrs + redeem[1], nrs))
+
+
+def error_rates(total_seeds, covl, nrs, old, wrap: torch.Tensor, ss: int, ring: int):
+    """computeErrorRate (:638-664) in f64, term for term in the host
+    engine's order (core/extend.py _compute_error_rate): the global error
+    (total - matched) / total with matched = total_seeds + ss - 1 + nrs
+    (the integer part exact), and the local error, which once the lane has
+    RING global errors (wrap) takes out the one RING back (old).  Each
+    torch op rounds once: nothing is contracted."""
+    matched = (total_seeds + (ss - 1)).to(F64) + nrs
+    total = covl.to(F64)
+    gerr = (total - matched) / total
+    # a CUDA tensor divided by a Python number is multiplied by the number's
+    # reciprocal, a second rounding: divide by a tensor
+    local = torch.where(wrap, (gerr * total - old * (total - ring)) / torch.full_like(total, ring),
+                        gerr)
+    return gerr, local
 
 
 # ---------------------------------------------------------------------------
@@ -335,8 +352,8 @@ class WalkConsts:
     min_length: torch.Tensor   # i32 [T] (clamped; no_term handles the wrap)
     no_term: torch.Tensor      # bool [T] min-length wrapped: never terminates
     freqs: torch.Tensor        # f32 [101] expected freq per k (shared)
-    pacbio_e: torch.Tensor     # f32 0-dim
-    err_bound: torch.Tensor    # f32 0-dim (0.25)
+    redeem: torch.Tensor       # f64 [2]: the num_redeem_seed adds (redeem_adds)
+    err_bound: torch.Tensor    # f64 0-dim (ERR_BOUND)
 
 
 @dataclass
@@ -374,8 +391,7 @@ class WalkState:
     num_errors: torch.Tensor
     seed_idx_offset: torch.Tensor
     query_overlap_len: torch.Tensor
-    red_a: torch.Tensor        # count of (1 - e) redeem increments
-    red_b: torch.Tensor        # count of (seed_size-1)*e redeem increments
+    nrs: torch.Tensor          # f64 [G, L]: the host's num_redeem_seed
     res_first: torch.Tensor    # resultindex.first, -1 none
     res_second: torch.Tensor
     tail_letter: torch.Tensor  # i8 [G, L]
@@ -384,9 +400,9 @@ class WalkState:
     tail8: torch.Tensor        # packed last-CK-chars 2-bit code (wcache key)
     chain: torch.Tensor        # i32 [G, L, 4, NCHAIN]: slot j = interval of
                                # the label suffix of length CK + j
-    local_err: torch.Tensor    # f32 [G, L]
-    gerr_last: torch.Tensor    # f32 [G, L]
-    ring: torch.Tensor         # f32 [G, L, RING]
+    local_err: torch.Tensor    # f64 [G, L]
+    gerr_last: torch.Tensor    # f64 [G, L]
+    ring: torch.Tensor         # f64 [G, L, RING]
     # per gap
     active: torch.Tensor       # bool [G]
     cur_len: torch.Tensor      # i32 [G]
@@ -396,12 +412,13 @@ class WalkState:
     # results
     res_labels: torch.Tensor   # i8 [G, RMAX, MAXLEN]
     res_len: torch.Tensor      # i32 [G, RMAX]
-    res_err: torch.Tensor      # f32 [G, RMAX]
+    res_err: torch.Tensor      # f64 [G, RMAX]
     res_i: torch.Tensor        # i32 [G, RMAX]
     res_count: torch.Tensor    # i32 [G]
-    res_overflow: torch.Tensor  # bool [G]
-    # sticky: an f32 tie gated a threshold retry (one of res_overflow's causes)
-    res_hazard: torch.Tensor   # bool [G]
+    res_overflow: torch.Tensor  # bool [G]: more results than RMAX slots
+    # sticky, informational: distinct leaves tied at the minimum local
+    # error and the tie gated a threshold retry (decided in f64)
+    res_tie: torch.Tensor      # bool [G]
 
 
 @dataclass
@@ -422,7 +439,7 @@ class Reduced:
     lab: torch.Tensor          # i8 [G, MAXLEN]
     len: torch.Tensor          # i32 [G]
     i: torch.Tensor            # i32 [G]
-    hazard: torch.Tensor       # bool [G]: overflow raised by an f32 tie
+    tie: torch.Tensor          # bool [G]: the walk resolved a tie (res_tie)
 
 
 def field_names(obj) -> list[str]:
@@ -444,7 +461,7 @@ CONST_FIELDS = (
 ROOT_FIELDS = ("f_lo", "f_hi", "r_lo", "r_hi", "freq", "chain0", "tail9",
                "tail8", "tail_letter", "tail_count")
 STATE_FIELDS = tuple(f.name for f in dataclasses.fields(WalkState))
-REDUCED_FIELDS = ("code", "overflow", "has", "lab", "len", "i", "hazard")
+REDUCED_FIELDS = ("code", "overflow", "has", "lab", "len", "i", "tie")
 
 
 # ---------------------------------------------------------------------------
@@ -637,7 +654,8 @@ def prep(wx: WalkIndex, query, q_len, trg, trg_len, n_term, init_k,
          no_term, freqs, pacbio_e: float, cfg: WalkConfig, kb_term: int,
          kb_root: int, use_wcache: bool):
     """All FM-derived batch setup: (WalkConsts, RootPack).  Kernel
-    walk_prep on CUDA tensors, prep_plain on CPU tensors."""
+    walk_prep on CUDA tensors, prep_plain on CPU tensors.  pacbio_e is the
+    host engine's error rate, a Python float (redeem_adds)."""
     fn = _prep_kernel if query.is_cuda else prep_plain
     o = fn(wx, query, q_len, trg, n_term, init_k, min_overlap, cfg, kb_term,
            kb_root, use_wcache)
@@ -648,8 +666,8 @@ def prep(wx: WalkIndex, query, q_len, trg, trg_len, n_term, init_k,
         qcode5=o["qcode5"], init_k=init_k, max_overlap=max_overlap,
         min_overlap=min_overlap, min_sa=min_sa, max_indel=max_indel,
         max_length=max_length, min_length=min_length, no_term=no_term,
-        freqs=freqs, pacbio_e=_f32(pacbio_e).to(dev),
-        err_bound=_f32(0.25).to(dev))
+        freqs=freqs, redeem=redeem_adds(pacbio_e, cfg.seed_size).to(dev),
+        err_bound=torch.tensor(ERR_BOUND, dtype=F64, device=dev))
     return consts, RootPack(**{k: o[k] for k in ROOT_FIELDS})
 
 
@@ -691,8 +709,7 @@ def init_state(consts: WalkConsts, root: RootPack, used, cfg: WalkConfig) -> Wal
         num_errors=zeros(G, L),
         seed_idx_offset=zeros(G, L),
         query_overlap_len=put(init_k),
-        red_a=zeros(G, L),
-        red_b=zeros(G, L),
+        nrs=zeros(G, L, dtype=F64),
         res_first=torch.full((G, L), -1, dtype=I32, device=dev),
         res_second=torch.full((G, L), -1, dtype=I32, device=dev),
         tail_letter=torch.where(u_l, root.tail_letter[:, None], 0).to(I8),
@@ -700,9 +717,9 @@ def init_state(consts: WalkConsts, root: RootPack, used, cfg: WalkConfig) -> Wal
         tail9=put(root.tail9),
         tail8=put(root.tail8),
         chain=chain.contiguous(),
-        local_err=zeros(G, L, dtype=F32),
-        gerr_last=zeros(G, L, dtype=F32),
-        ring=zeros(G, L, cfg.RING, dtype=F32),
+        local_err=zeros(G, L, dtype=F64),
+        gerr_last=zeros(G, L, dtype=F64),
+        ring=zeros(G, L, cfg.RING, dtype=F64),
         active=used.clone(),
         cur_len=torch.where(used, init_k, 0).to(I32),
         cur_k=torch.where(used, init_k, 0).to(I32),
@@ -710,11 +727,11 @@ def init_state(consts: WalkConsts, root: RootPack, used, cfg: WalkConfig) -> Wal
         code=zeros(G),
         res_labels=torch.full((G, cfg.RMAX, cfg.MAXLEN), PAD, dtype=I8, device=dev),
         res_len=zeros(G, cfg.RMAX),
-        res_err=zeros(G, cfg.RMAX, dtype=F32),
+        res_err=zeros(G, cfg.RMAX, dtype=F64),
         res_i=zeros(G, cfg.RMAX),
         res_count=zeros(G),
         res_overflow=zeros(G, dtype=torch.bool),
-        res_hazard=zeros(G, dtype=torch.bool),
+        res_tie=zeros(G, dtype=torch.bool),
     )
 
 
@@ -799,8 +816,8 @@ def _seed_support_match(consts, codes9, valid, start_idx, large_idx, curr_seed_i
     return found, key.argmin(dim=-1).to(I32)
 
 
-_C2, _C06, _C025, _C02, _C0125, _C03 = (
-    _f32(2.0), _f32(0.6), _f32(0.25), _f32(0.2), _f32(0.125), _f32(0.3))
+_C06, _C025, _C02, _C0125, _C03 = (
+    _f32(0.6), _f32(0.25), _f32(0.2), _f32(0.125), _f32(0.3))
 
 
 def _cutoff_mask(freq4, total_cnt, max_freq, match5, tail_count, thresh):
@@ -897,14 +914,14 @@ def superstep_plain(wx: WalkIndex, consts: WalkConsts, state: WalkState,
     r_hi = torch.where(sel0, rf[..., 3], s.r_hi)
     cur_k0 = torch.where(need_ref0, consts.max_overlap, s.cur_k)
 
-    # ---------- attempToExtend: erase relatively-bad leaves
-    big = _C2.to(dev)
-    err_vals = torch.where(s.alive, s.local_err, big)
+    # ---------- attempToExtend: erase relatively-bad leaves (f64, as the
+    # host engine compares its local errors)
+    err_vals = torch.where(s.alive, s.local_err, 2.0)
     min_err = err_vals.amin(dim=1)
     diff = s.local_err - min_err[:, None]
     erase = s.alive & (
-        ((diff > _f32(0.05).to(dev)) & (s.cur_len[:, None] > cfg.RING // 2))
-        | ((diff > _f32(0.1).to(dev)) & (s.cur_len[:, None] > 15)))
+        ((diff > 0.05) & (s.cur_len[:, None] > cfg.RING // 2))
+        | ((diff > 0.1) & (s.cur_len[:, None] > 15)))
     alive1 = s.alive & ~erase
     leaf_cnt = alive1.sum(dim=1, dtype=I32)
     is_min = err_vals == min_err[:, None]
@@ -926,14 +943,14 @@ def superstep_plain(wx: WalkIndex, consts: WalkConsts, state: WalkState,
         mask_t = _cutoff_mask(freq, total_cnt, max_freq, m5, s.tail_count, thresh)
         mask_t1 = _cutoff_mask(freq, total_cnt, max_freq, m5, s.tail_count, thresh - 1)
         ext = _leaf_choice(mask_t, mask_t1, alive1, retry_ok)
-        haz = (tie_leaf & alive1 & ~mask_t.any(-1) & mask_t1.any(-1)).any(dim=1)
-        return ext, (mask_t, mask_t1, m5, total_cnt, max_freq), haz
+        tie = (tie_leaf & alive1 & ~mask_t.any(-1) & mask_t1.any(-1)).any(dim=1)
+        return ext, (mask_t, mask_t1, m5, total_cnt, max_freq), tie
 
     if cfg.SLAB:
         p0 = ext_slot(cur_k0)
     else:
         p0 = _probe4(ix, f_lo, f_hi, r_lo, r_hi)
-    extA, _, hazA = attempt(p0, consts.min_sa)
+    extA, _, tieA = attempt(p0, consts.min_sa)
     gapA = extA.any(dim=2).any(dim=1)
 
     # ---------- level 1 (k reduce) + level 2 (threshold relax); the JAX
@@ -949,13 +966,12 @@ def superstep_plain(wx: WalkIndex, consts: WalkConsts, state: WalkState,
     reduce_size = _select_freqs_of_range(consts, torch.stack(freq3), lower,
                                          cur_k0, alive1)
     p1 = ext_slot(reduce_size)
-    extB, aux1, hazB = attempt(p1, consts.min_sa)
+    extB, aux1, tieB = attempt(p1, consts.min_sa)
     mask_t1, m5, total_cnt, max_freq = aux1[1], aux1[2], aux1[3], aux1[4]
     mask_t2 = _cutoff_mask(p1[4], total_cnt, max_freq, m5, s.tail_count,
                            consts.min_sa - 2)
     extC = _leaf_choice(mask_t1, mask_t2, alive1, retry_ok)
-    hazC = (tie_leaf & alive1 & ~mask_t1.any(-1) & mask_t2.any(-1)).any(dim=1)
-    hazBC = hazB | hazC
+    tieC = (tie_leaf & alive1 & ~mask_t1.any(-1) & mask_t2.any(-1)).any(dim=1)
     gapB = extB.any(dim=2).any(dim=1) & need_l1
     gapC = extC.any(dim=2).any(dim=1) & need_l1 & ~gapB
 
@@ -994,8 +1010,7 @@ def superstep_plain(wx: WalkIndex, consts: WalkConsts, state: WalkState,
     c_total_seeds = par(s.total_seeds)
     c_num_err = par(s.num_errors)
     c_sio = par(s.seed_idx_offset)
-    c_red_a = par(s.red_a)
-    c_red_b = par(s.red_b)
+    c_nrs = par(s.nrs)
     c_res_first = par(s.res_first)
     c_res_second = par(s.res_second)
     c_ring = s.ring[:, parent, :]
@@ -1058,11 +1073,12 @@ def superstep_plain(wx: WalkIndex, consts: WalkConsts, state: WalkState,
     found = found & do_match
     miss = do_match & ~found
 
+    # the host's num_redeem_seed adds, at most one a leaf a step
     v = curr_seed_idx[:, None] + c_sio - c_last_seed
-    c_red_b = c_red_b + (found & (v > ss)).to(I32)
     c_num_err = c_num_err + (miss & (v % ss == 1)).to(I32)
-    c_red_a = c_red_a + (miss & (v % ss != 1) & (v > ss - 1)).to(I32)
-    c_red_a = c_red_a + (cand & ~do_match).to(I32)
+    c_nrs = add_redeem(c_nrs, found & (v > ss),
+                       (miss & (v % ss != 1) & (v > ss - 1)) | (cand & ~do_match),
+                       consts.redeem)
     c_sio = torch.where(found, best_pos - curr_seed_idx[:, None], c_sio)
     c_last_seed = torch.where(found, best_pos, c_last_seed)
     c_query_ovl = torch.where(found, best_pos + ss, c_query_ovl)
@@ -1070,23 +1086,13 @@ def superstep_plain(wx: WalkIndex, consts: WalkConsts, state: WalkState,
     c_curr_ovl = torch.where(found, cur_len_new[:, None], c_curr_ovl)
     c_total_seeds = c_total_seeds + found.to(I32)
 
-    # computeErrorRate (:638-664) from integer counters: gerr = (U + V*e)
-    # / total.  The JAX function as XLA compiles it contracts U + V*e and
-    # the ring's gerr*total - old*(total-RING) into fused multiply-adds
-    # and divides by RING as a multiply by the f32 reciprocal; the port
-    # computes exactly that
-    c_U = c_curr_ovl - c_total_seeds - (ss - 1) - c_red_a
-    c_V = c_red_a - (ss - 1) * c_red_b
-    total = c_curr_ovl.to(F32)
-    gerr = fma_f32(c_V.to(F32), consts.pacbio_e, c_U.to(F32)) / total
+    # computeErrorRate (:638-664) in f64, in the host engine's order
     n_app = s.gerr_n + 1
     slot_w = (n_app - 1) % cfg.RING
     slot_r = n_app % cfg.RING
     old = torch.gather(c_ring, 2, slot_r.long()[:, None, None].expand(G, C, 1))[..., 0]
-    local = torch.where((n_app >= cfg.RING)[:, None],
-                        fma_f32(gerr, total, -(old * (total - cfg.RING)))
-                        * (_f32(1.0) / cfg.RING),
-                        gerr)
+    gerr, local = error_rates(c_total_seeds, c_curr_ovl, c_nrs, old,
+                              (n_app >= cfg.RING)[:, None], ss, cfg.RING)
     wpos = torch.arange(cfg.RING, device=dev)[None, None, :] == slot_w[:, None, None]
     c_ring = torch.where(wpos & cand[..., None], gerr[..., None], c_ring)
     surv = cand & ~(local > consts.err_bound)
@@ -1112,9 +1118,8 @@ def superstep_plain(wx: WalkIndex, consts: WalkConsts, state: WalkState,
     new_rank = torch.cumsum(is_new_res.to(I32), dim=1, dtype=I32)
     slot = torch.where(is_new_res, s.res_count[:, None] + new_rank - 1,
                        torch.where(t_found, c_res_first - 1, -1))
-    fp_hazard = run & (hazA | (hazBC & need_l1))
-    res_overflow = s.res_overflow | (slot >= cfg.RMAX).any(dim=1) | fp_hazard
-    res_hazard = s.res_hazard | fp_hazard
+    res_overflow = s.res_overflow | (slot >= cfg.RMAX).any(dim=1)
+    res_tie = s.res_tie | (run & (tieA | ((tieB | tieC) & need_l1)))
     writer = t_found & (slot >= 0) & (slot < cfg.RMAX)
     c_res_first = torch.where(is_new_res, slot + 1, c_res_first)
     c_res_second = torch.where(t_found, imax, c_res_second)
@@ -1204,8 +1209,7 @@ def superstep_plain(wx: WalkIndex, consts: WalkConsts, state: WalkState,
         num_errors=upd(s.num_errors, c_num_err),
         seed_idx_offset=upd(s.seed_idx_offset, c_sio),
         query_overlap_len=upd(s.query_overlap_len, c_query_ovl),
-        red_a=upd(s.red_a, c_red_a),
-        red_b=upd(s.red_b, c_red_b),
+        nrs=upd(s.nrs, c_nrs),
         res_first=upd(s.res_first, c_res_first),
         res_second=upd(s.res_second, c_res_second),
         tail_letter=upd(s.tail_letter, c_tail_letter),
@@ -1227,7 +1231,7 @@ def superstep_plain(wx: WalkIndex, consts: WalkConsts, state: WalkState,
         res_i=torch.where(rs, res_i, s.res_i),
         res_count=torch.where(run, res_count, s.res_count),
         res_overflow=torch.where(run, res_overflow, s.res_overflow),
-        res_hazard=torch.where(run, res_hazard, s.res_hazard),
+        res_tie=torch.where(run, res_tie, s.res_tie),
     )
 
 
@@ -1244,7 +1248,7 @@ def reduce_results_plain(state: WalkState, cfg: WalkConfig) -> Reduced:
     blen = torch.gather(state.res_len, 1, best[:, None])[:, 0]
     bi = torch.gather(state.res_i, 1, best[:, None])[:, 0]
     return Reduced(code=state.code.clone(), overflow=state.res_overflow.clone(),
-                   has=has, lab=lab, len=blen, i=bi, hazard=state.res_hazard.clone())
+                   has=has, lab=lab, len=blen, i=bi, tie=state.res_tie.clone())
 
 
 # ---------------------------------------------------------------------------
@@ -1275,8 +1279,8 @@ def _tensor_ptrs(name: str, obj, fields, on_card: bool = True) -> list[int]:
 
 def _shared_ptrs(name: str, consts: WalkConsts, on_card: bool = True) -> list[int]:
     return [cuda.check(name, consts.freqs, F32, (101,), on_card),
-            cuda.check(name, consts.pacbio_e.reshape(1), F32, on_card=on_card),
-            cuda.check(name, consts.err_bound.reshape(1), F32, on_card=on_card)]
+            cuda.check(name, consts.redeem, F64, (2,), on_card),
+            cuda.check(name, consts.err_bound.reshape(1), F64, on_card=on_card)]
 
 
 def _reduced_empty(G: int, cfg: WalkConfig, dev) -> Reduced:
@@ -1287,7 +1291,7 @@ def _reduced_empty(G: int, cfg: WalkConfig, dev) -> Reduced:
         lab=torch.full((G, cfg.MAXLEN), ab.PAD_RANK, dtype=I8, device=dev),
         len=torch.zeros(G, dtype=I32, device=dev),
         i=torch.zeros(G, dtype=I32, device=dev),
-        hazard=torch.zeros(G, dtype=torch.bool, device=dev))
+        tie=torch.zeros(G, dtype=torch.bool, device=dev))
 
 
 def walk_steps_plain(wx: WalkIndex, consts: WalkConsts, state: WalkState,
@@ -1353,7 +1357,7 @@ def steps_args(wx: WalkIndex, consts: WalkConsts, state: WalkState, red: Reduced
 
 SMEM_LIMIT = 232448   # shared memory one block may use on the H100 (bytes)
 LANE_WARPS = 4        # most gap lanes (warps) per block of the walk kernels
-_SCAL, _CAND_W = 24, 24  # ints of a leaf record's scalars, of a candidate's scratch
+_SCAL, _CAND_W = 28, 24  # ints of a leaf record's scalars, of a candidate's scratch
 # the last launch geometry of each walk kernel (from its C entry)
 GEOMETRY: dict = {}
 
@@ -1361,9 +1365,9 @@ GEOMETRY: dict = {}
 @dataclass(frozen=True)
 class LanePlan:
     """One gap lane's shared memory (bytes), as csrc/walk.cuh lays it out:
-    two records per leaf slot (scalars, chain ring, error ring), the
-    candidates' scratch of a superstep, the result slots, the leaf sources
-    and the labels as a history of (symbol, parent slot) bytes."""
+    two records per leaf slot (scalars, chain ring, the f64 error ring),
+    the candidates' scratch of a superstep, the result slots, the leaf
+    sources and the labels as a history of (symbol, parent slot) bytes."""
 
     records: int
     candidates: int
@@ -1387,9 +1391,9 @@ def lane_smem_bytes(cfg: WalkConfig) -> LanePlan:
     if not 1 <= cfg.L <= 32 or cfg.RMAX > 64 or max(cfg.MAXLEN, cfg.QMAX) >= 1 << 16:
         raise ValueError(f"walk kernels: L={cfg.L} RMAX={cfg.RMAX} MAXLEN={cfg.MAXLEN} "
                          f"QMAX={cfg.QMAX} out of range")
-    rs = _SCAL + 4 * cfg.NCHAIN + ((cfg.RING + 3) & ~3)
+    rs = _SCAL + 4 * cfg.NCHAIN + 2 * ((cfg.RING + 1) & ~1)
     parts = dict(records=2 * cfg.L * rs * 4, candidates=4 * cfg.L * _CAND_W * 4,
-                 results=_a16(5 * cfg.RMAX * 4), leaf_src=_a16(cfg.L * 4),
+                 results=_a16(6 * cfg.RMAX * 4), leaf_src=_a16(cfg.L * 4),
                  history=_a16(cfg.MAXLEN * cfg.L))
     total = sum(parts.values())
     if total > SMEM_LIMIT:
@@ -1622,37 +1626,43 @@ def submit_gap_batch(wx: WalkIndex, tasks, cfg: WalkConfig,
 
 def run_gap_batch(host_ix, wx: WalkIndex, tasks, cfg: WalkConfig,
                   pacbio_error_rate: float, pb_coverage: int,
-                  max_steps: int = 4096, _handle=None, why: list | None = None):
+                  max_steps: int = 4096, _handle=None, why: list | None = None,
+                  ties: list | None = None):
     """[(code, merged_seq)] of a batch of GapTasks, -100 where the host
     engine must replay (flagged, or not converged in max_steps); -200 and
     -300 lanes are re-run in the wide and the dense config.  why, if
     given, is extended by one entry per task: the FLAG_REASONS entry of a
-    -100 (of the task's last run), None for any other code."""
+    -100 (of the task's last run), None for any other code; ties, if
+    given, by the tie bit of each task's last run (Reduced.tie)."""
     if _handle is None:
         _handle = submit_gap_batch(wx, tasks, cfg, pacbio_error_rate,
                                    pb_coverage, max_steps)
-    return _collect(host_ix, wx, _handle, pacbio_error_rate, pb_coverage, max_steps, why)
+    return _collect(host_ix, wx, _handle, pacbio_error_rate, pb_coverage, max_steps,
+                    why, ties)
 
 
-# why a lane comes back -100: an f32 tie gated a threshold retry (hazard),
-# more results than RMAX slots (slots), no end in max_steps (unfinished:
-# code 0, or -900 in the queue), more leaves than max_leaves at the widest
-# config (leaves); a lane with both overflow causes counts as hazard
+# why a lane comes back -100: more results than RMAX slots (slots), no end
+# in max_steps (unfinished: code 0, or -900 in the queue), more leaves than
+# max_leaves at the widest config (leaves).  hazard is never given (the
+# walk decides its ties in f64); its counter stays, and reads 0
 FLAG_REASONS = ("hazard", "slots", "unfinished", "leaves")
 
 
-def _collect(host_ix, wx, handle, pacbio_error_rate, pb_coverage, max_steps, why):
+def _collect(host_ix, wx, handle, pacbio_error_rate, pb_coverage, max_steps, why,
+             ties=None):
     """run_gap_batch / collect_queue_batch of a handle whose reductions were
     launched: -100 where the host engine must replay, -200 / -300 lanes
-    re-run (_retry_flagged), the rest finalized; why as run_gap_batch's."""
+    re-run (_retry_flagged), the rest finalized; why and ties as
+    run_gap_batch's."""
     tasks, cfg, red = handle
     red = _to_host(red)
     out, reasons, retry, retry_dense = [], [], [], []
+    tie = [bool(x) for x in red["tie"][: len(tasks)]]
     for g, t in enumerate(tasks):
         c = int(red["code"][g])
         reason = None
         if red["overflow"][g]:
-            reason = "hazard" if red["hazard"][g] else "slots"
+            reason = "slots"
         elif c in (0, -900):
             reason = "unfinished"
         reasons.append(reason)
@@ -1666,20 +1676,22 @@ def _collect(host_ix, wx, handle, pacbio_error_rate, pb_coverage, max_steps, why
             retry_dense.append(g)
         else:
             out.append(finalize_gap(t, red, g))
-    _retry_flagged(host_ix, wx, tasks, out, reasons, retry, retry_dense, cfg,
+    _retry_flagged(host_ix, wx, tasks, out, reasons, tie, retry, retry_dense, cfg,
                    pacbio_error_rate, pb_coverage, max_steps)
     if why is not None:
         why.extend(reasons)
+    if ties is not None:
+        ties.extend(tie)
     return out
 
 
-def _retry_flagged(host_ix, wx, tasks, out, reasons, retry, retry_dense,
+def _retry_flagged(host_ix, wx, tasks, out, reasons, tie, retry, retry_dense,
                    cfg: WalkConfig, pacbio_error_rate, pb_coverage, max_steps):
     """Re-run -200 (leaf-slot overflow) gaps in the wide config and -300
-    (slab-span overflow) gaps on the dense engine; fill `out` and
-    `reasons`."""
+    (slab-span overflow) gaps on the dense engine; fill `out`, `reasons`
+    and `tie`."""
     if retry_dense:
-        _rerun(host_ix, wx, tasks, out, reasons, retry_dense, dense_config(cfg),
+        _rerun(host_ix, wx, tasks, out, reasons, tie, retry_dense, dense_config(cfg),
                pacbio_error_rate, pb_coverage, max_steps)
     if retry:
         if cfg.L >= cfg.max_leaves:
@@ -1687,7 +1699,7 @@ def _retry_flagged(host_ix, wx, tasks, out, reasons, retry, retry_dense,
                 out[g] = (-100, "")
                 reasons[g] = "leaves"
         else:
-            _rerun(host_ix, wx, tasks, out, reasons, retry, wide_config(cfg),
+            _rerun(host_ix, wx, tasks, out, reasons, tie, retry, wide_config(cfg),
                    pacbio_error_rate, pb_coverage, max_steps)
 
 
@@ -1701,17 +1713,19 @@ def wide_config(cfg: WalkConfig) -> WalkConfig:
     return replace(cfg, L=cfg.max_leaves, CAND=4 * cfg.max_leaves)
 
 
-def _rerun(host_ix, wx, tasks, out, reasons, which, cfg, pacbio_error_rate,
+def _rerun(host_ix, wx, tasks, out, reasons, tie, which, cfg, pacbio_error_rate,
            pb_coverage, max_steps):
     sub = [tasks[g] for g in which]
     for base in range(0, len(sub), cfg.G):
         chunk = sub[base : base + cfg.G]
         why: list = []
+        ties: list = []
         res = run_gap_batch(host_ix, wx, chunk, replace(cfg, G=len(chunk)),
-                            pacbio_error_rate, pb_coverage, max_steps, why=why)
-        for j, (r, w) in enumerate(zip(res, why)):
+                            pacbio_error_rate, pb_coverage, max_steps, why=why, ties=ties)
+        for j, (r, w, x) in enumerate(zip(res, why, ties)):
             out[which[base + j]] = r
             reasons[which[base + j]] = w
+            tie[which[base + j]] = x
 
 
 def submit_queue_batch(wx: WalkIndex, tasks, cfg: WalkConfig,
@@ -1723,8 +1737,8 @@ def submit_queue_batch(wx: WalkIndex, tasks, cfg: WalkConfig,
 
 
 def collect_queue_batch(host_ix, wx: WalkIndex, handle, pacbio_error_rate,
-                        pb_coverage, why: list | None = None):
+                        pb_coverage, why: list | None = None, ties: list | None = None):
     """Wait for a submit_queue_batch handle; returns [(code, seq)], -100
-    where the host engine must replay (flag / timeout / not run); why as
-    run_gap_batch's."""
-    return _collect(host_ix, wx, handle, pacbio_error_rate, pb_coverage, 4096, why)
+    where the host engine must replay (flag / timeout / not run); why and
+    ties as run_gap_batch's."""
+    return _collect(host_ix, wx, handle, pacbio_error_rate, pb_coverage, 4096, why, ties)

@@ -52,6 +52,7 @@ struct dim3 {
 struct alignas(16) int4 { int x, y, z, w; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) double2 { double x, y; };
 inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
   return uint4{x, y, z, w};
@@ -252,6 +253,10 @@ inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
 inline float __int_as_float(int x) { return shim::unbits<float>((uint64_t)(uint32_t)x); }
 inline int __float_as_int(float x) { return (int)(uint32_t)shim::bits(x); }
 

@@ -1,13 +1,17 @@
-"""The replay's spans and counters on a CLR read set (the port on the CPU).
+"""The replay's spans and counters on a CLR read set (the port on the CPU),
+and the walks that tie there.
 
 BatchedSelfCorrector times the host engine, the MSA/DP fallback and the
 miss rounds inside the replay (phase_times "replay.host_engine",
 "replay.dp", "replay.rounds") and counts why the walks flagged each gap
-they left to the host engine (stats fl_*: the walk's f32-tie hazard bit,
-result slots, no end, max_leaves).  On CLR reads at 15% error some walks
-end on an f32 tie and are flagged, so every counter has work.  The outputs
-stay the JAX host SelfCorrector's; the spans never overlap and fit inside
-the replay; each flagged lookup has exactly one reason.
+they left to the host engine (stats fl_*: result slots, no end,
+max_leaves; fl_hazard, the f32 tie the walk once flagged, reads 0) and
+the hits whose walk resolved a tie among leaves at the minimum error
+(walk_ties).  On CLR reads at 15% error some walks meet such a tie: the
+JAX walk flags them (f32), the port walks them in f64 to the host engine's
+own answer.  The outputs stay the JAX host SelfCorrector's; the spans
+never overlap and fit inside the replay; each flagged lookup has exactly
+one reason.
 """
 import math
 from dataclasses import replace
@@ -18,8 +22,11 @@ import torch
 
 from longreadselfcorrect_tpu.core.correct import CorrectionParams as JParams
 from longreadselfcorrect_tpu.core.correct import SelfCorrector as JSelfCorrector
+from longreadselfcorrect_tpu.index.fmindex import FMIndex as JFMIndex
+from longreadselfcorrect_tpu.index.fmindex import IndexSet as JIndexSet
 from longreadselfcorrect_tpu.index.host import HostFM as JHostFM
 from longreadselfcorrect_tpu.index.host import HostIndexSet as JHostIndexSet
+from longreadselfcorrect_tpu.ops import walk as jw
 from longreadselfcorrect_tpu_torch import cli
 from longreadselfcorrect_tpu_torch.core import seeds as seedmod
 from longreadselfcorrect_tpu_torch.core.batch_correct import BatchedSelfCorrector
@@ -29,6 +36,7 @@ from longreadselfcorrect_tpu_torch.ops import walk
 from pbbench import simreads
 
 from test_torch_correct import COUNTERS
+from test_torch_walk_prep import HostWalks, port_tasks
 
 torch.set_num_threads(1)
 
@@ -57,16 +65,17 @@ def clr_corpus(d):
 
 
 def flagged_tasks(corrector, reads):
-    """The gap tasks the reads enumerate (host seeds) and the reason the
-    plain walk gives each -100 (None for the others)."""
+    """The gap tasks the reads enumerate (host seeds), the reason the plain
+    walk gives each -100 (None for the others) and each task's tie bit."""
     per_read = [(rid, seq, seedmod.search_seeds(seq, corrector.ix, corrector.probe_params,
                                                 corrector.thresh))
                 for rid, seq in reads]
     tasks, _ = corrector._enumerate_walks(per_read)
     why: list = []
+    ties: list = []
     walk.run_gap_batch(corrector.ix, corrector.wx, tasks,
-                       replace(corrector.cfg, G=len(tasks)), 0.15, 30, why=why)
-    return tasks, why
+                       replace(corrector.cfg, G=len(tasks)), 0.15, 30, why=why, ties=ties)
+    return tasks, why, ties
 
 
 @pytest.fixture(scope="module")
@@ -81,8 +90,15 @@ def corpus(tmp_path_factory):
 def test_replay_spans_and_counters(corpus, monkeypatch, prefetch):
     """8 reads in one batch; with prefetch "half" every other enumerated
     gap is left out of the first device round, so the miss rounds run and
-    reads are replayed."""
+    reads are replayed.  A gap of 45 bases is made to fit no device config
+    (fb_unfit), so the host engine runs: no walk is flagged any more."""
     reads, hix, dix, jhix = corpus
+    fits_any = BatchedSelfCorrector._fits_any
+
+    def unfit_45(self, src, path, trg, interval, ek):
+        return interval != 45 and fits_any(self, src, path, trg, interval, ek)
+
+    monkeypatch.setattr(BatchedSelfCorrector, "_fits_any", unfit_45)
     if prefetch == "half":
         enumerate_walks = BatchedSelfCorrector._enumerate_walks
 
@@ -101,7 +117,7 @@ def test_replay_spans_and_counters(corpus, monkeypatch, prefetch):
             assert getattr(res, name) == getattr(want, name), (rid, name)
 
     st, pt = port.stats, port.phase_times
-    assert st["fb_flagged"] > 0 and st["fl_hazard"] > 0, st
+    assert st["fl_hazard"] == 0 and st["walk_ties"] > 0 and st["fb_unfit"] > 0, st
     assert sum(st["fl_" + r] for r in walk.FLAG_REASONS) == st["fb_flagged"], st
     assert st["host_fallback"] == st["fb_flagged"] + st["fb_unfit"] + st["fb_lastround"]
     assert st["he_calls"] == st["host_fallback"]
@@ -126,25 +142,67 @@ def test_replay_spans_and_counters(corpus, monkeypatch, prefetch):
 
 def test_flag_reasons_of_the_walk(corpus):
     """run_gap_batch and collect_queue_batch give each -100 one reason and
-    leave their (code, seq) pairs as they were: the walk's hazard bit on
-    these tasks, and lanes cut at max_steps (unfinished).  (A -200 lane at
-    max_leaves, reason leaves, needs L >= max_leaves, where the walk ends
-    a lane of more than max_leaves leaves with 1 or -3 before -200.)"""
+    leave their (code, seq) pairs as they were: none on these tasks, whose
+    ties the walk decides (tie bits, equal on both engines), and lanes cut
+    at max_steps (unfinished).  (A -200 lane at max_leaves, reason leaves,
+    needs L >= max_leaves, where the walk ends a lane of more than
+    max_leaves leaves with 1 or -3 before -200.)"""
     reads, hix, dix, _ = corpus
     port = BatchedSelfCorrector(hix, dix, CorrectionParams(**PARAMS))
-    tasks, why = flagged_tasks(port, reads[:24])
-    assert "hazard" in why and None in why
+    tasks, why, ties = flagged_tasks(port, reads[:24])
+    assert why == [None] * len(tasks) and any(ties) and not all(ties)
     cfg = replace(port.cfg, G=len(tasks))
     plain = walk.run_gap_batch(hix, port.wx, tasks, cfg, 0.15, 30)
     for max_steps in (4096, 20):
-        w_batch, w_queue = [], []
-        got = walk.run_gap_batch(hix, port.wx, tasks, cfg, 0.15, 30, max_steps, why=w_batch)
+        w_batch, w_queue, t_batch, t_queue = [], [], [], []
+        got = walk.run_gap_batch(hix, port.wx, tasks, cfg, 0.15, 30, max_steps, why=w_batch,
+                                 ties=t_batch)
         h = walk.submit_queue_batch(port.wx, tasks, cfg, 0.15, 30, max_steps)
-        got_q = walk.collect_queue_batch(hix, port.wx, h, 0.15, 30, why=w_queue)
+        got_q = walk.collect_queue_batch(hix, port.wx, h, 0.15, 30, why=w_queue,
+                                         ties=t_queue)
         for res, w in ((got, w_batch), (got_q, w_queue)):
             assert [x is None for x in w] == [c != -100 for c, _ in res]
-            assert set(w) - {None} <= set(walk.FLAG_REASONS)
+            assert set(w) - {None} <= set(walk.FLAG_REASONS) - {"hazard"}
         if max_steps == 4096:
             assert got == plain == got_q and w_batch == why == w_queue
+            assert t_batch == ties == t_queue
         else:
             assert "unfinished" in w_batch and "unfinished" in w_queue
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_tie_lanes_match_host(corpus, wide):
+    """The gaps the JAX walk flags (-100) on an f32 tie among leaves at
+    the minimum error: the port's batch and queue engines return, per
+    task, the host engine's (code, sequence), at the corrector's bulk
+    config and at L = max_leaves; every other gap still gets the JAX
+    walk's (code, sequence)."""
+    reads, hix, dix, jhix = corpus
+    port = BatchedSelfCorrector(hix, dix, CorrectionParams(**PARAMS))
+    tasks, _, ties = flagged_tasks(port, reads[:24])
+    cfg = replace(port.cfg, G=len(tasks))
+    cfg = walk.wide_config(cfg) if wide else cfg
+    jd = JIndexSet(bwt=JFMIndex.from_symbols(hix.bwt.symbols, hix.bwt.num_strings),
+                   rbwt=JFMIndex.from_symbols(hix.rbwt.symbols, hix.rbwt.num_strings))
+    jcfg = jw.WalkConfig(**{f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
+    jtasks = [jw.GapTask(**{f: getattr(t, f) for f in t.__dataclass_fields__}) for t in tasks]
+    want = jw.run_gap_batch(jhix, jw.WalkIndex.build(jd, jhix, ck=cfg.CK), jtasks, jcfg,
+                            0.15, 30)
+    flagged = [g for g, (c, _) in enumerate(want) if c == -100]
+    assert flagged and all(ties[g] for g in flagged), (flagged, ties)
+    got = walk.run_gap_batch(hix, port.wx, tasks, cfg, 0.15, 30)
+    got_q = walk.collect_queue_batch(hix, port.wx, walk.submit_queue_batch(
+        port.wx, tasks, cfg, 0.15, 30), 0.15, 30)
+    for g, t in enumerate(tasks):
+        for res in (got, got_q):
+            if g in flagged:
+                assert res[g] == host_code_seq(hix, t), g
+            else:
+                assert res[g] == want[g], g
+
+
+def host_code_seq(hix, t):
+    """(code, merged sequence) of the task by the host engine."""
+    eng = HostWalks(hix, [t]).eng[0]
+    code, res = eng.extend()
+    return code, res.merged_seq

@@ -53,12 +53,13 @@ def test_every_config_fits_one_block(walk_corpus, name, ck):
 
 
 def test_main_config_plan(walk_corpus):
-    """The main config on the bench index (ck = 12): two records of 176
-    ints per leaf slot, 16 candidates of 24 ints, 768 x 4 label bytes:
-    10,576 bytes, four lanes a block."""
+    """The main config on the bench index (ck = 12): two records of 280
+    ints per leaf slot (28 scalars, the chain ring of 4 x 13, the error
+    ring of 100 doubles), 16 candidates of 24 ints, 16 result slots of 24
+    bytes, 768 x 4 label bytes: 13,968 bytes, four lanes a block."""
     plan = tw.lane_smem_bytes(ladder(walk_corpus, 12)["cfg"])
-    assert (plan.records, plan.candidates, plan.history, plan.total) == (5632, 1536, 3072,
-                                                                       10576)
+    assert (plan.records, plan.candidates, plan.results, plan.history,
+            plan.total) == (8960, 1536, 384, 3072, 13968)
     assert plan.warps_per_block == 4
     # the widest: L = 32 over 2816 positions, one lane a block
     huge = tw.lane_smem_bytes(tw.wide_config(ladder(walk_corpus, 12)["cfg_huge"]))

@@ -22,6 +22,7 @@ from longreadselfcorrect_tpu.index.fmindex import IndexSet as JIndexSet
 from longreadselfcorrect_tpu.index.host import HostFM as JHostFM
 from longreadselfcorrect_tpu.index.host import HostIndexSet as JHostIndexSet
 from longreadselfcorrect_tpu.ops import walk as jw
+from longreadselfcorrect_tpu_torch.core.extend import FMExtendParams, HostExtendEngine
 from longreadselfcorrect_tpu_torch.index.fmindex import FMIndex, IndexSet
 from longreadselfcorrect_tpu_torch.index.host import HostFM, HostIndexSet
 from longreadselfcorrect_tpu_torch.index.pack import open_index
@@ -71,14 +72,94 @@ def walk_corpus():
     return make_pair(33, 6000, 180)
 
 
-# the state fields the JAX walk has: all but the port's res_hazard, which
-# marks the lanes whose res_overflow an f32 tie raised (hazard_ok)
-JAX_STATE_FIELDS = tuple(f for f in tw.STATE_FIELDS if f != "res_hazard")
+# the port's f64 error fields: the JAX walk keeps f32 error rates (and the
+# integer counters red_a / red_b for nrs), so these are held to the host
+# engine (HostWalks) instead
+F64_FIELDS = ("nrs", "local_err", "gerr_last", "ring", "res_err")
+# the fields the port shares with the JAX walk: the integer, bool and label
+# fields (res_tie, informational, is the port's own)
+JAX_STATE_FIELDS = tuple(f for f in tw.STATE_FIELDS if f not in F64_FIELDS + ("res_tie",))
 
 
-def hazard_ok(state) -> bool:
-    """res_hazard is one of res_overflow's causes: never set without it."""
-    return not bool((state.res_hazard & ~state.res_overflow).any())
+def assert_jax_state(js, ts, what):
+    """Every field the port shares with the JAX walk, bit for bit, on the
+    lanes the JAX walk did not flag: JAX's res_overflow is also raised by
+    its f32 tie, which the port decides in f64 as the host engine does
+    (HostWalks holds those lanes).  The port's res_overflow (result slots
+    only) is never set where JAX's is not."""
+    keep = ~np.asarray(js.res_overflow)
+    for f in JAX_STATE_FIELDS:
+        a, b = np.asarray(getattr(js, f)), getattr(ts, f).cpu().numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, (what, f)
+        assert np.array_equal(a[keep], b[keep]), (what, f, np.argwhere(a[keep] != b[keep])[:5])
+    assert not (ts.res_overflow.cpu().numpy() & keep).any(), what
+
+
+def assert_fresh_errors(ts):
+    """A fresh lane: every f64 error field zero (the root's errors are 0.0
+    in the host engine), no tie."""
+    for f in F64_FIELDS:
+        x = getattr(ts, f)
+        assert x.dtype == torch.float64 and not bool(x.any()), f
+    assert not bool(ts.res_tie.any())
+
+
+class HostWalks:
+    """The host engine (core/extend.py HostExtendEngine) walking each task
+    of a batch, one while-iteration of extendOverlap a step: the yardstick
+    of the port's f64 error fields.  A superstep of the port is one such
+    iteration, and its leaf slots hold the host's leaves in order."""
+
+    def __init__(self, th, tasks, e=0.15, cov=30):
+        self.eng = [HostExtendEngine(th, t.src, t.path, t.trg, t.dis, t.init_k,
+                                     t.max_overlap,
+                                     FMExtendParams(min_kmer_length=t.min_overlap,
+                                                    pb_coverage=cov, error_rate=e),
+                                     t.min_sa_threshold) for t in tasks]
+        self.results = [[] for _ in tasks]
+
+    def step(self, n=1):
+        for eng, res in zip(self.eng, self.results):
+            for _ in range(n):
+                if not (eng.leaves and len(eng.leaves) <= eng.max_leaves
+                        and eng.current_length <= eng.max_length):
+                    break
+                new = []
+                eng._extend_leaves(new)
+                eng._pruned_by_seed_support(new)
+                eng.leaves = new
+                if eng.current_length >= eng.min_length:
+                    eng._is_terminated(res)
+
+    def assert_errors(self, ts, cfg, what) -> int:
+        """The port's f64 fields equal the host's, bit for bit, on every
+        lane the host can be held to (not -200 / -300, the host's leaves
+        fit L): per live leaf slot its local and global error, its
+        num_redeem_seed and the ring of its last RING global errors; per
+        result slot its error.  Returns the number of lanes compared."""
+        n_cmp = 0
+        for g, (eng, res) in enumerate(zip(self.eng, self.results)):
+            code = int(ts.code[g])
+            if code in (-200, -300) or len(eng.leaves) > cfg.L:
+                continue
+            n_cmp += 1
+            alive = ts.alive[g].tolist()
+            assert alive == [i < len(eng.leaves) for i in range(cfg.L)], (what, g)
+            assert int(ts.res_count[g]) == len(res), (what, g)
+            n = int(ts.gerr_n[g])
+            for i, leaf in enumerate(eng.leaves):
+                assert len(leaf.global_err) == n, (what, g, i)
+                got = (float(ts.local_err[g, i]), float(ts.gerr_last[g, i]),
+                       float(ts.nrs[g, i]))
+                want = (leaf.local_err[-1], leaf.global_err[-1], leaf.num_redeem_seed)
+                assert got == want, (what, g, i, got, want)
+                ring = [0.0] * cfg.RING
+                for j in range(max(n - cfg.RING, 0), n):
+                    ring[j % cfg.RING] = leaf.global_err[j]
+                assert ts.ring[g, i].tolist() == ring, (what, g, i)
+            errs = [r.error_rate for r in res[: cfg.RMAX]]
+            assert ts.res_err[g, : len(errs)].tolist() == errs, (what, g)
+        return n_cmp
 
 
 def port_tasks(tasks):
@@ -195,9 +276,12 @@ def test_prep_batch_and_init_state(walk_corpus, noisy):
     jc, js = jw.build_batch(c["jh"], tasks, jcfg, 0.15, 30, dev_ix=c["jd"])
     twx = tw.WalkIndex.build(c["td"], c["th"])
     tc, ts = tw.build_batch(twx, port_tasks(tasks), tcfg, 0.15, 30)
-    assert_same(jc, tc, tw.CONST_FIELDS + ("freqs", "pacbio_e", "err_bound"), "consts")
+    assert_same(jc, tc, tw.CONST_FIELDS + ("freqs",), "consts")
+    # the host engine's constants, from e as the Python double it is there
+    assert tc.redeem.dtype == tc.err_bound.dtype == torch.float64
+    assert tc.redeem.tolist() == [(9 - 1) * 0.15, 1 - 0.15] and float(tc.err_bound) == 0.25
     assert_same(js, ts, JAX_STATE_FIELDS, "state")
-    assert not bool(ts.res_hazard.any())
+    assert_fresh_errors(ts)
 
 
 @pytest.mark.parametrize("ck,kmax", [(8, 24), (10, 19)])
@@ -218,7 +302,7 @@ def test_prep_bank_with_wcache(walk_corpus, ck, kmax):
     js = jw._init_state(jb.consts, jb.root, jnp.asarray(used), jcfg)
     ts = tw.init_state(tb.consts, tb.root, torch.from_numpy(used), tcfg)
     assert_same(js, ts, JAX_STATE_FIELDS, "init_state")
-    assert not bool(ts.res_hazard.any())
+    assert_fresh_errors(ts)
 
 
 def test_prep_bank_short_seeds_skip_wcache(walk_corpus):

@@ -7,7 +7,7 @@ a barrier).  The C entries are called through ctypes with CPU pointers,
 the arguments built by the same functions the wrappers use (ops/walk.py
 steps_args, queue_args).  walk_steps (40 supersteps, then on to
 completion) and walk_queue are held against walk_steps_plain /
-walk_queue_plain, every field, tolerance 0 (ints, bools, labels and f32
+walk_queue_plain, every field, tolerance 0 (ints, bools, labels and f64
 error rates that feed compares).  walk_prep is held against prep_plain on
 banks and batches whose tasks have no terminal window, one or all 48,
 init_k below, at and far above CK, and a bank whose largest init_k (21)
@@ -149,20 +149,23 @@ def test_walk_kernels_match_plain(lib, corpora, slab, L, kmax, corpus):
 @pytest.fixture(scope="module")
 def clr(tmp_path_factory):
     """test_torch_replay_tracing.py's CLR read set: the gap tasks of 24
-    reads and the reason the plain walk gives each -100."""
+    reads, the reason the plain walk gives each -100 and their tie bits."""
     reads, hix, dix = clr_corpus(tmp_path_factory.mktemp("clr"))
     port = BatchedSelfCorrector(hix, dix, CorrectionParams(**PARAMS))
     return port, *flagged_tasks(port, reads[:24])
 
 
 def test_walk_kernels_hazard_match_plain(lib, clr):
-    """Two CLR gaps whose walks end flagged on an f32 tie and two that do
-    not, at the corrector's bulk config: walk_steps (40 supersteps, then
-    on to completion) and walk_queue equal the plain versions, the hazard
-    bit of the state and of the reduction included."""
-    port, tasks, why = clr
-    pick = ([g for g, w in enumerate(why) if w == "hazard"][:2]
-            + [g for g, w in enumerate(why) if w is None][:2])
+    """Two CLR gaps whose walks meet a tie among leaves at the minimum
+    error (the JAX walk's f32 hazard, flagged there; decided in f64 here)
+    and two that do not, at the corrector's bulk config: walk_steps (40
+    supersteps, then on to completion) and walk_queue equal the plain
+    versions bit for bit, the f64 error fields and the tie bit of the
+    state and of the reduction included."""
+    port, tasks, why, ties = clr
+    assert why == [None] * len(tasks)
+    pick = ([g for g, x in enumerate(ties) if x][:2]
+            + [g for g, x in enumerate(ties) if not x][:2])
     sel = [tasks[g] for g in pick]
     cfg = replace(port.cfg, G=len(sel))
     consts, state = tw.build_batch(port.wx, sel, cfg, 0.15, 30)
@@ -172,12 +175,12 @@ def test_walk_kernels_hazard_match_plain(lib, clr):
         rp = tw.walk_steps_plain(port.wx, consts, want, cfg, n)
         assert_equal(got, want, tw.STATE_FIELDS, f"state after {n}")
         assert_equal(rk, rp, tw.REDUCED_FIELDS, f"reduction after {n}")
-    assert rp.hazard.tolist() == [True, True, False, False]
+    assert rp.tie.tolist() == [True, True, False, False]
     bank = tw.build_bank(port.wx, sel, cfg, 0.15, 30)
     got_q = host_queue(lib, port.wx, bank, len(sel), cfg, 4096)
     want_q = tw.walk_queue_plain(port.wx, bank, len(sel), cfg, 4096)
     assert_equal(got_q, want_q, tw.REDUCED_FIELDS, "queue")
-    assert want_q.hazard.tolist() == [True, True, False, False]
+    assert want_q.tie.tolist() == [True, True, False, False]
 
 
 def spec_tasks(reads, spec):
