@@ -7,6 +7,15 @@ once before ``pbcorrect``), and the reference's own occurrence tables are
 made from fmbuild's raw BWT files.  All of it is kept under
 ``pbbench/.cache/<config>/`` and made again only when the configuration's
 data keys change, so only a cell's first run in a checkout pays for it.
+
+The ``genome`` block holds the genome's ``length`` and may hold
+``repeats``: a list of repeat families, each
+``{"name", "unit_len", "copies", "identity", "layout"}`` with ``layout``
+``tandem`` or ``dispersed``, planted in the uniform random genome in the
+list's order (``simreads.plant``).  Where there are any, the map of the
+planted copies (family, start, end, strand, identity drawn) is kept beside
+the data set as ``repeats.json``.  Without them no draw is added, so a
+configuration without repeats keeps its data set and its stamp.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ from .reference import tables
 
 VERSION = 1
 DATA_KEYS = ("genome", "reads", "coverage", "corpus_seed")
+REPEATS = "repeats.json"
 
 
 @dataclass
@@ -45,6 +55,9 @@ class Corpus:
 
 def stamp(cfg: dict) -> str:
     data = {k: cfg[k] for k in DATA_KEYS}
+    if "repeats" in data["genome"] and not data["genome"]["repeats"]:
+        # no family plants nothing: the same data set as no list
+        data["genome"] = {k: v for k, v in data["genome"].items() if k != "repeats"}
     data["version"] = VERSION
     return hashlib.sha256(json.dumps(data, sort_keys=True).encode()).hexdigest()[:16]
 
@@ -63,6 +76,10 @@ def _build(root: str, cfg: dict, out: str) -> dict:
     t = time.perf_counter()
     rng = np.random.default_rng(int(cfg["corpus_seed"]))
     g = simreads.genome(rng, int(cfg["genome"]["length"]))
+    planted = simreads.plant(rng, g, cfg["genome"].get("repeats", ()))
+    if planted:
+        with open(os.path.join(out, REPEATS), "w") as fh:
+            json.dump(planted, fh)
     bases, offsets, _ = simreads.clr_reads(rng, g, cfg["reads"], float(cfg["coverage"]))
     np.save(os.path.join(out, "bases.npy"), bases)
     np.save(os.path.join(out, "offsets.npy"), offsets)

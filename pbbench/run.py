@@ -79,6 +79,7 @@ class Window:
     done: list = field(default_factory=list)   # (rid, seq, result, batch fell back)
     failed: int = 0
     seconds: float = 0.0
+    back_s: list = field(default_factory=list)  # seconds from the start to each batch back
 
 
 def forbidden_modules() -> list[str]:
@@ -129,6 +130,7 @@ def run_window(corrector, data, ids, batch_reads: int, seconds: float) -> Window
                 else:
                     w.done.append((rid, seq, r, fb > fell_back))
             fell_back = fb
+            w.back_s.append(time.perf_counter() - t_start)
             if time.perf_counter() >= deadline:
                 break
         w.seconds = time.perf_counter() - t_start
@@ -333,6 +335,7 @@ def run_cell(root: str, workload: str, seed: int, seconds: float, trace: bool,
     say(f"window: {m.reads} reads, {m.bases} bases in {m.window_s:.3f} s; "
         f"phases {json.dumps(m.phase_times)}; stats {json.dumps(m.stats)}")
     say("host in the window: " + json.dumps({k: host1[k] - host0[k] for k in host0}))
+    say("batches back at (s): " + json.dumps([round(t, 3) for t in w.back_s]))
 
     if prof is not None:
         m.trace = devtrace.collect(prof) if s.on_gpu else None

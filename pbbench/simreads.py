@@ -1,4 +1,5 @@
-"""A random genome and a PacBio CLR read set drawn from it, in numpy.
+"""A random genome, with repeat families planted in it, and a PacBio CLR
+read set drawn from it, in numpy.
 
 The read model is PBSIM's model-based CLR simulation (Ono et al. 2013,
 Bioinformatics 29:119): log-normal read lengths cut to [min, max], a
@@ -18,9 +19,69 @@ BLOCK_BASES = 1 << 24   # template bases simulated per block
 EVENTS = ("template_bases", "substitutions", "insertions", "deletions")
 
 
+LAYOUTS = ("tandem", "dispersed")
+
+
 def genome(rng: np.random.Generator, length: int) -> np.ndarray:
-    """A uniform random genome (uint8 0..3)."""
+    """A uniform random genome (uint8 0..3); ``plant`` adds repeat families."""
     return rng.integers(0, 4, size=length, dtype=np.uint8)
+
+
+def _free_start(rng, taken: list, length: int, need: int, name: str) -> int:
+    """A start drawn uniformly among those where need bases fit in
+    [0, length) without overlapping an interval of taken."""
+    ends = np.array([0] + [e for _, e in taken], np.int64)
+    nexts = np.array([s for s, _ in taken] + [length], np.int64)
+    fits = np.maximum(nexts - ends - need + 1, 0)
+    if not fits.any():
+        raise ValueError(f"repeat family {name!r} does not fit: no free stretch "
+                         f"of {need} bases is left in the genome of {length}")
+    cum = np.cumsum(fits)
+    k = int(rng.integers(cum[-1]))
+    gap = int(np.searchsorted(cum, k, side="right"))
+    return int(ends[gap] + k - (cum[gap] - fits[gap]))
+
+
+def plant(rng: np.random.Generator, g: np.ndarray, repeats) -> list[dict]:
+    """Plants each family of repeats in g, in place and in order, and
+    returns the map of the copies: family, start, end, strand and the
+    identity drawn (the share of the unit's bases the copy keeps).
+
+    A family is ``{"name", "unit_len", "copies", "identity", "layout"}``.
+    Its unit is uniform random bases; each copy takes independent
+    substitutions at rate ``1 - identity``.  ``tandem`` copies lie head to
+    tail on the plus strand from one drawn start; ``dispersed`` copies lie
+    at drawn places, each on a random strand.  No two copies overlap, and
+    all lie inside g.  No family, no draw."""
+    taken: list[tuple[int, int]] = []   # sorted, disjoint [start, end)
+    out = []
+    for fam in repeats:
+        name, n, ln = fam["name"], int(fam["copies"]), int(fam["unit_len"])
+        if fam["layout"] not in LAYOUTS:
+            raise ValueError(f"repeat family {name!r}: layout {fam['layout']!r} "
+                             f"is not one of {LAYOUTS}")
+        unit = rng.integers(0, 4, size=ln, dtype=np.uint8)
+        sub = rng.random((n, ln)) < 1.0 - float(fam["identity"])
+        shift = rng.integers(1, 4, size=(n, ln), dtype=np.uint8)
+        copies = np.where(sub, (unit + shift) % 4, unit).astype(np.uint8)
+        if fam["layout"] == "tandem":
+            s0 = _free_start(rng, taken, len(g), n * ln, name)
+            taken = sorted(taken + [(s0, s0 + n * ln)])
+            starts = s0 + ln * np.arange(n)
+            minus = np.zeros(n, bool)
+        else:
+            minus = rng.random(n) < 0.5
+            starts = []
+            for _ in range(n):
+                starts.append(_free_start(rng, taken, len(g), ln, name))
+                taken = sorted(taken + [(starts[-1], starts[-1] + ln)])
+        for c in range(n):
+            s = int(starts[c])
+            g[s : s + ln] = (3 - copies[c])[::-1] if minus[c] else copies[c]
+            out.append({"family": name, "start": s, "end": s + ln,
+                        "strand": "-" if minus[c] else "+",
+                        "identity": 1.0 - float(sub[c].mean())})
+    return out
 
 
 def _truncated(draw, lo, hi, n):

@@ -1,5 +1,6 @@
 """pbbench's tests.  Tests that need an NVIDIA GPU carry the ``chip``
 marker and skip, from inside the test, where there is none."""
+import json
 import os
 import shutil
 import sys
@@ -39,34 +40,81 @@ TINY = {
 }
 
 
+# TINY with one planted family: a 1 kb unit at 6 copies, identity 0.995,
+# so that the seed phase finds repeat seeds and the replay the variants of
+# an accumulated source
+TINY_REPEATS = {**TINY, "corpus_seed": 12,
+                "genome": {"length": 20000, "repeats": [
+                    {"name": "rep1k", "unit_len": 1000, "copies": 6, "identity": 0.995,
+                     "layout": "dispersed"}]}}
+
+# the host metrics (program spans and counters) that every traced run
+# reports, on the CPU too
+HOST_TODAY = {"seed.host_s_per_mbp", "walks.host_s_per_mbp", "walks.gaps_per_kbp",
+              "replay.host_s_per_mbp", "replay.host_fallback_pct", "dp.replay_share_pct"}
+
+
+def read_bench(root: str) -> dict:
+    with open(os.path.join(root, "BENCHMARK.json")) as fh:
+        return json.load(fh)
+
+
+def write_bench(root: str, bench: dict) -> None:
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as fh:
+        json.dump(bench, fh)
+
+
+def add_cell(root: str, cell: str, config: str, traffic: str, cfg: dict | None = None,
+             mix: dict | None = None) -> None:
+    """Adds a cell to the checkout at root as files and entries alone: the
+    configuration's file where cfg is given, the mix's where mix is, the
+    cell, and the cell in every per-layer metric's list."""
+    bench = read_bench(root)
+    if cfg is not None:
+        with open(os.path.join(root, "pbbench", "configs", config + ".json"), "w") as fh:
+            json.dump({"source": "a test data set", **cfg}, fh)
+        bench["configs"].append({"name": config, "source": "a test data set",
+                                 "file": f"pbbench/configs/{config}.json",
+                                 "reduced": cfg["reduced"], "why": "CPU tests"})
+    if mix is not None:
+        with open(os.path.join(root, "pbbench", "traffic", traffic + ".json"), "w") as fh:
+            json.dump(mix, fh)
+    bench["workloads"].append({"name": cell, "config": config, "traffic": traffic,
+                               "chips": 1, "why": "CPU tests"})
+    for m in bench["per_layer"]:
+        m.setdefault("workloads", []).append(cell)
+    write_bench(root, bench)
+
+
+def host_layers(root: str) -> set[str]:
+    """The per-layer metrics of the checkout read from the program's spans
+    and counters."""
+    return {m["name"] for m in read_bench(root)["per_layer"]
+            if m["source"] in ("program_span", "program_counter")}
+
+
+def assert_host_metrics(root: str, metrics: dict) -> None:
+    """A traced line of a CPU run: each of HOST_TODAY, any other host metric
+    a finite number or absent (its reader found nothing), and no device
+    metric."""
+    import math
+
+    assert HOST_TODAY <= set(metrics) <= host_layers(root)
+    assert all(math.isfinite(v["value"]) for v in metrics.values())
+
+
 def make_root(dest: str) -> str:
     """A checkout of the benchmark under dest: BENCHMARK.json, pbbench/
     (no cache, no tests) and native/'s sources, with one more cell,
     tiny.small, on the TINY data set: every read, in batches of 4."""
-    import json
-
     shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), dest)
     shutil.copytree(os.path.join(ROOT, "pbbench"), os.path.join(dest, "pbbench"),
                     ignore=shutil.ignore_patterns(".cache", "tests", "__pycache__"))
     os.makedirs(os.path.join(dest, "native"))
     for name in ("Makefile", "fmbuild.cpp"):
         shutil.copy(os.path.join(ROOT, "native", name), os.path.join(dest, "native"))
-    with open(os.path.join(dest, "pbbench", "configs", "tiny.json"), "w") as fh:
-        json.dump({"source": "a test data set", **TINY}, fh)
-    with open(os.path.join(dest, "pbbench", "traffic", "small.json"), "w") as fh:
-        json.dump({"order": "shuffle", "batch_reads": 4}, fh)
-    path = os.path.join(dest, "BENCHMARK.json")
-    with open(path) as fh:
-        bench = json.load(fh)
-    bench["configs"].append({"name": "tiny", "source": "a test data set",
-                             "file": "pbbench/configs/tiny.json", "reduced": [],
-                             "why": "CPU tests"})
-    bench["workloads"].append({"name": "tiny.small", "config": "tiny", "traffic": "small",
-                               "chips": 1, "why": "CPU tests"})
-    for m in bench["per_layer"]:
-        m["workloads"].append("tiny.small")
-    with open(path, "w") as fh:
-        json.dump(bench, fh)
+    add_cell(dest, "tiny.small", "tiny", "small", cfg=TINY,
+             mix={"order": "shuffle", "batch_reads": 4})
     return dest
 
 

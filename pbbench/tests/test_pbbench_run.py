@@ -8,9 +8,9 @@ import torch
 
 from pbbench import run
 
+from conftest import assert_host_metrics
+
 E2E = {"corrected_kbp_per_s", "peak_device_gb", "setup_s"}
-HOST_LAYERS = {"seed.host_s_per_mbp", "walks.host_s_per_mbp", "walks.gaps_per_kbp",
-               "replay.host_s_per_mbp", "replay.host_fallback_pct", "dp.replay_share_pct"}
 
 
 @pytest.fixture(autouse=True)
@@ -43,7 +43,7 @@ def test_run_cell_cpu_traced(tiny_root, capsys):
     line = run.run_cell(tiny_root, "tiny.small", 5, 1.0, True, device="cpu", workers=1)
     assert line["correct"] is True
     # the device trace's metrics need a card; the host's are all there
-    assert set(line["metrics"]) == HOST_LAYERS
+    assert_host_metrics(tiny_root, line["metrics"])
     assert "busy_s" not in line["device"]
     json.dumps(line)
 
